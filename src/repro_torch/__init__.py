@@ -1,0 +1,50 @@
+"""PyTorch / CUDA port of the ``repro`` functional layer for NVIDIA Hopper.
+
+The package mirrors ``repro``'s module names (``configs``, ``kernels``,
+``models``, ``serve``) and imports neither ``jax`` nor ``repro``: it
+keeps its own copy of what it needs. It serves the dense family end to
+end; prefill attention runs a hand-written CUDA flash-attention kernel
+(``kernels/csrc/flash_attention.cu``) built with ``nvcc`` at first use.
+
+Entry points (``ServeEngine``, ``build_model``, ``Model.init``) run on
+``cuda`` unless the caller passes ``device="cpu"``. Without a card they
+raise; they never drop to the CPU on their own.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` by default.
+
+    Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
+    default) and no card is present.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+# Submodules import resolve_device from here, so they load after it.
+from repro_torch.configs import ARCHS, SMOKES, ModelConfig, get_arch  # noqa: E402
+from repro_torch.models.registry import Model, build_model  # noqa: E402
+from repro_torch.serve.engine import GenerationResult, ServeEngine  # noqa: E402
+
+__all__ = [
+    "ARCHS",
+    "SMOKES",
+    "GenerationResult",
+    "Model",
+    "ModelConfig",
+    "ServeEngine",
+    "build_model",
+    "get_arch",
+    "resolve_device",
+]

@@ -1,0 +1,25 @@
+"""Architecture registry over the configs ported so far."""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+from repro_torch.configs import qwen2_0_5b
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = {
+    "qwen2-0.5b": qwen2_0_5b,
+}
+
+ARCHS: Dict[str, ModelConfig] = {k: m.ARCH for k, m in _MODULES.items()}
+SMOKES: Dict[str, ModelConfig] = {k: m.SMOKE for k, m in _MODULES.items()}
+ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)
+
+
+def get_arch(arch_id: str, smoke: bool = False) -> ModelConfig:
+    table = SMOKES if smoke else ARCHS
+    if arch_id not in table:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(table)}")
+    return table[arch_id]
+
+
+__all__ = ["ARCHS", "SMOKES", "ARCH_IDS", "ModelConfig", "get_arch"]

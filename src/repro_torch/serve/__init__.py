@@ -1,0 +1,4 @@
+"""Serving layer of the port."""
+from repro_torch.serve.engine import GenerationResult, ServeEngine
+
+__all__ = ["GenerationResult", "ServeEngine"]
