@@ -2,9 +2,11 @@
 
 The package mirrors ``repro``'s module names (``configs``, ``kernels``,
 ``models``, ``serve``) and imports neither ``jax`` nor ``repro``: it
-keeps its own copy of what it needs. It serves the dense family end to
-end; prefill attention runs a hand-written CUDA flash-attention kernel
-(``kernels/csrc/flash_attention.cu``) built with ``nvcc`` at first use.
+keeps its own copy of what it needs. It serves the dense and moe
+families end to end. Two hand-written CUDA kernels, built with ``nvcc``
+at first use, carry the hot spots: flash attention in prefill
+(``kernels/csrc/flash_attention.cu``) and the MoE experts' grouped GEMMs
+(``kernels/csrc/grouped_matmul.cu``).
 
 Entry points (``ServeEngine``, ``build_model``, ``Model.init``) run on
 ``cuda`` unless the caller passes ``device="cpu"``. Without a card they

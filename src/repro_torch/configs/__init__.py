@@ -3,11 +3,12 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-from repro_torch.configs import qwen2_0_5b
+from repro_torch.configs import qwen2_0_5b, qwen2_moe_a2_7b
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "qwen2-0.5b": qwen2_0_5b,
+    "qwen2-moe-a2.7b": qwen2_moe_a2_7b,
 }
 
 ARCHS: Dict[str, ModelConfig] = {k: m.ARCH for k, m in _MODULES.items()}

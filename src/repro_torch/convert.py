@@ -2,10 +2,12 @@
 
 The reference keeps params as a nested dict with the layer params
 stacked on a leading n_layers axis; the port keeps one ``Block`` per
-layer with the same attribute names. Leaves are taken as numpy arrays
-(``np.asarray`` of a reference array works without importing its
-framework); the ``x @ W`` (d_in, d_out) orientation and the cache shape
-(n_layers, B, S_max, n_kv, hd) are kept as they are.
+layer with the same attribute names (a moe layer's
+``moe.{router,w_gate,w_up,w_down,shared.*}`` included). Leaves are
+taken as numpy arrays (``np.asarray`` of a reference array works
+without importing its framework); the ``x @ W`` (d_in, d_out)
+orientation and the cache shape (n_layers, B, S_max, n_kv, hd) are kept
+as they are.
 """
 from __future__ import annotations
 

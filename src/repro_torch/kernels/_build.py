@@ -31,6 +31,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "repro_flash_attention_fwd": (_I, [_P, _P, _P, _P] + [_I] * 8 + [_P]),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
+    "grouped_matmul": {
+        "repro_grouped_matmul": (_I, [_P, _P, _P] + [_I] * 5 + [_P]),
+        "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -3,5 +3,6 @@
 layout and mask ragged edges in the kernel, so nothing is padded here.
 """
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.grouped_matmul import grouped_matmul
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "grouped_matmul"]

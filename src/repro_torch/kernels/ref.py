@@ -38,3 +38,10 @@ def gqa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.transpose(1, 2).repeat_interleave(g, dim=1).reshape(b * h, -1, hd)
     o = attention_ref(qf, kf, vf, causal)
     return o.reshape(b, h, s, hd).transpose(1, 2)
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, d); w: (E, d, f) -> (E, C, f). fp32 accumulation,
+    output in x.dtype."""
+    out = torch.einsum("ecd,edf->ecf", x.float(), w.float())
+    return out.to(x.dtype)

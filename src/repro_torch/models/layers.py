@@ -37,10 +37,13 @@ def _param(shape, dtype, device, fill: Optional[float] = None) -> nn.Parameter:
 
 
 def dense_init_(w: torch.Tensor, generator: torch.Generator) -> None:
-    """N(0, 1/d_in) drawn in fp32 on the generator's device (the CPU),
-    then copied: one seed gives the same weights on every device."""
-    d_in = w.shape[0]
-    w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(d_in))
+    """N(0, 1/d_in) drawn in fp32 on the generator's own device, then
+    copied into ``w``: a CPU generator gives the same weights on every
+    device; a CUDA generator draws on the card. ``w`` is (d_in, d_out)
+    or a stack (..., d_in, d_out)."""
+    d_in = w.shape[-2]
+    w.copy_(torch.randn(w.shape, generator=generator,
+                        device=generator.device) / math.sqrt(d_in))
 
 
 # ----------------------------------------------------------------------

@@ -32,8 +32,9 @@ class Model:
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device: DeviceLike = None) -> transformer.Transformer:
-        """Random weights on ``device`` (cuda by default), drawn from a
-        CPU generator, so a seed gives the same weights everywhere."""
+        """Random weights on ``device`` (cuda by default), drawn on the
+        generator's device: a CPU generator gives the same weights
+        everywhere; a CUDA generator draws on the card."""
         return transformer.init_params(self.cfg, generator, dtype,
                                        resolve_device(device))
 

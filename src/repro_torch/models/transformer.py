@@ -1,9 +1,9 @@
-"""Decoder-only transformer stack, dense family.
+"""Decoder-only transformer stack, dense and moe families.
 
 Port of the reference package's ``models/transformer.py``. The
 reference stacks layer params on a leading n_layers axis and scans over
-them; the port keeps one ``Block`` module per layer and loops. The
-moe, vlm and audio families are not ported yet and raise.
+them; the port keeps one ``Block`` module per layer and loops. The vlm
+and audio families are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -14,11 +14,12 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoE, moe_apply
 
 Cache = Tuple[torch.Tensor, torch.Tensor]   # each (n_layers, B, S_max, n_kv, hd)
 
+PORTED = ("dense", "moe")
 NOT_PORTED = {
-    "moe": "ROADMAP.md Queue 1 item 5 (moe family with kernel K2)",
     "vlm": "ROADMAP.md Queue 1 item 6 (vlm and audio families)",
     "audio": "ROADMAP.md Queue 1 item 6 (vlm and audio families)",
     "ssm": "ROADMAP.md Queue 1 item 8 (ssm and hybrid stacks)",
@@ -27,7 +28,7 @@ NOT_PORTED = {
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED:
         where = NOT_PORTED.get(cfg.family, "no ROADMAP item")
         raise NotImplementedError(
             f"the {cfg.family} family is not ported yet: {where}")
@@ -40,12 +41,16 @@ class Block(nn.Module):
         self.attn_norm = L.RMSNorm(cfg.d_model, dtype, device)
         self.attn = L.Attention(cfg, dtype, device)
         self.mlp_norm = L.RMSNorm(cfg.d_model, dtype, device)
-        self.mlp = L.MLP(cfg, dtype, device)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, dtype, device)
+        else:
+            self.mlp = L.MLP(cfg, dtype, device)
 
 
 class Transformer(nn.Module):
-    """Parameters of a dense decoder; names follow the reference's
-    param dict (``embed``, ``layers``, ``final_norm``, ``lm_head``)."""
+    """Parameters of a dense or moe decoder; names follow the
+    reference's param dict (``embed``, ``layers``, ``final_norm``,
+    ``lm_head``)."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32,
                  device=None) -> None:
@@ -62,13 +67,16 @@ class Transformer(nn.Module):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.float32, device=None) -> Transformer:
-    """Random weights from a CPU ``generator``: dense weights
-    N(0, 1/d_in), embeddings N(0, 0.02^2), norms 1, biases 0."""
+    """Random weights drawn on ``generator``'s device: dense and expert
+    weights N(0, 1/d_in), embeddings N(0, 0.02^2), norms 1, biases 0.
+    A CPU generator gives the same weights on every device."""
     p = Transformer(cfg, dtype, device)
     for blk in p.layers:
         blk.attn.reset_parameters(generator)
-        blk.mlp.reset_parameters(generator)
-    p.embed.copy_(torch.randn(p.embed.shape, generator=generator) * 0.02)
+        (blk.moe if cfg.family == "moe" else blk.mlp).reset_parameters(
+            generator)
+    p.embed.copy_(torch.randn(p.embed.shape, generator=generator,
+                              device=generator.device) * 0.02)
     if not cfg.tie_embeddings:
         L.dense_init_(p.lm_head, generator)
     return p
@@ -98,7 +106,13 @@ def _layer_apply(cfg: ModelConfig, p_l: Block, x: torch.Tensor,
         cache_index=cache_index, causal=True)
     x = x + attn_out
     h = L.rmsnorm(p_l.mlp_norm, x, cfg.norm_eps)
-    return x + L.mlp_apply(p_l.mlp, cfg, h)
+    if cfg.family == "moe":
+        # serving drops the load-balancing loss; training will add it
+        # to forward's return
+        out, _ = moe_apply(p_l.moe, cfg, h)
+    else:
+        out = L.mlp_apply(p_l.mlp, cfg, h)
+    return x + out
 
 
 # ----------------------------------------------------------------------

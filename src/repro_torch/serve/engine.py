@@ -2,7 +2,7 @@
 the KV cache.
 
 Port of the reference package's ``serve/engine.py`` for the dense
-family. Runs on ``cuda`` unless ``device="cpu"`` is passed.
+and moe families. Runs on ``cuda`` unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 

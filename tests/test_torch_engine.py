@@ -146,7 +146,7 @@ def test_prompt_too_long_raises(engines):
         engines[1].generate(_prompt(7, S=60), n_new=8)
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "audio", "ssm", "hybrid"])
+@pytest.mark.parametrize("family", ["vlm", "audio", "ssm", "hybrid"])
 def test_unported_families_raise(family):
     cfg = SMOKES[ARCH].replace(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -179,10 +179,10 @@ def test_port_imports_neither_jax_nor_reference():
         import numpy as np
         import repro_torch
         from repro_torch import ServeEngine, SMOKES
-        cfg = SMOKES["qwen2-0.5b"]
-        res = ServeEngine(cfg, max_seq=32, device="cpu").generate(
-            np.zeros((1, 8), np.int32), n_new=3)
-        assert res.tokens.shape == (1, 3)
+        for arch in ("qwen2-0.5b", "qwen2-moe-a2.7b"):
+            res = ServeEngine(SMOKES[arch], max_seq=32, device="cpu").generate(
+                np.zeros((1, 8), np.int32), n_new=3)
+            assert res.tokens.shape == (1, 3)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                      or m == "repro" or m.startswith("repro."))
