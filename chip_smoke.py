@@ -11,7 +11,9 @@ Run from the repository root, with nothing else on the command line:
 2. Kernels: holds each kernel against its plain PyTorch version on the
    card: flash attention (K1) at both serving paths' prefill shapes and
    at ragged, wide-head, Sq != Sk and non-causal cases; the grouped GEMM
-   (K2) at the moe path's shapes, the reference's sweep and (1,1,1,1).
+   (K2) at the moe path's shapes, the reference's sweep and (1,1,1,1),
+   densely and with ``rows`` (occupied rows per expert) as the moe path
+   passes them.
 3. Dense engine: serves full-width qwen2-0.5b (random weights from a
    seed) through ``ServeEngine.generate``, checks that every layer's
    prefill attention went through K1, and holds the card against the
@@ -21,12 +23,13 @@ Run from the repository root, with nothing else on the command line:
    through ``ServeEngine.generate``, checks that every prefill
    attention went through K1 and every expert GEMM through K2 (counted
    by phase and shape, each launch's device time read from CUDA events
-   around it), then holds the card against the CPU path at full width
-   and 2 layers.
+   around it, its ``rows`` read after the run), then holds the card
+   against the CPU path at full width and 2 layers.
 5. Timing: times each kernel at each of its main-path shapes, its plain
    version and the PyTorch library call that computes the same
    function, beside the least time the card could take for the same
-   work.
+   work; K2 also with the ``rows`` of the main run, beside the least
+   time for what those rows need.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}``
 line before the last line, which is ``{"ok": true, "device": {...}}``.
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -127,6 +131,38 @@ def gmm_bound(E, C, d, f, dtype):
     t_ops, t_bytes = ops / peak, nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def gmm_rows_bound(rows: torch.Tensor, C, d, f, dtype):
+    """(bytes ms, operations ms) an H100 needs at least for one K2 launch
+    with ``rows`` (E,): the weights of the experts with rows[e] > 0,
+    x's rows below rows[e], all of o written once; 2 rows[e] d f
+    operations per expert."""
+    r = rows.clamp(0, C).double()
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = elt * ((r > 0).sum() * d * f + r.sum() * d + r.numel() * C * f)
+    peak = H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+    return (float(nbytes) / H100_BYTES_PER_S * 1e3,
+            float(2 * r.sum() * d * f) / peak * 1e3)
+
+
+def gmm_rows(kind, E, C, seed=0):
+    """(E,) int32 rows on the card: "decode" gives 15 experts 1-4 rows
+    and the rest 0, as a decode step of 4 tokens at top-4 does; "ragged"
+    draws from [0, C] with rows[0] = 0 and rows[-1] = C; "zero" and
+    "full" are all 0 and all C."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "decode":
+        r = torch.zeros(E, dtype=torch.int32)
+        m = min(15, E)
+        r[torch.randperm(E, generator=g)[:m]] = torch.randint(
+            1, min(4, C) + 1, (m,), generator=g, dtype=torch.int32)
+    elif kind == "ragged":
+        r = torch.randint(0, C + 1, (E,), generator=g, dtype=torch.int32)
+        r[0], r[-1] = 0, C
+    else:
+        r = torch.full((E,), 0 if kind == "zero" else C, dtype=torch.int32)
+    return r.cuda()
 
 
 def moe_rows(cfg, B, S):
@@ -228,6 +264,36 @@ def kernel_phase(fa, gm, ref, moe_cfg) -> None:
                   f"grouped_matmul disagrees with its plain version "
                   f"(case {i}, {dtype})")
 
+    # the same with rows: x zero past rows[e], as the moe path packs it;
+    # the rows past rows[e] must come out exactly 0
+    cases = [((E, dec, d, d_e), "decode"), ((E, dec, d_e, d), "decode"),
+             ((E, pre, d, d_e), "ragged"), ((E, pre, d_e, d), "ragged"),
+             ((E, dec, d, d_e), "zero"), ((E, pre, d_e, d), "zero"),
+             ((E, dec, d, d_e), "full"), ((E, pre, d, d_e), "full"),
+             ((4, 128, 256, 128), "ragged"), ((2, 64, 512, 96), "ragged"),
+             ((6, 100, 300, 130), "ragged"), ((6, 20, 300, 130), "ragged"),
+             ((2, 1, 1, 1), "ragged")]
+    for i, ((E_, C, d_, f), kind) in enumerate(cases):
+        rows = gmm_rows(kind, E_, C, seed=i)
+        live = torch.arange(C, device="cuda") < rows[:, None]
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            x, w = gmm_inputs(E_, C, d_, f, dtype, seed=200 + i)
+            x = torch.where(live[..., None], x, 0)
+            out = gm.grouped_matmul(x, w, rows)
+            want = ref.grouped_matmul_ref(x, w, rows)
+            torch.cuda.synchronize()
+            out, want = out.float(), want.float()
+            err = (out - want).abs().max().item()
+            ok = out.shape == (E_, C, f) and torch.allclose(
+                out, want, rtol=tol, atol=tol) and not out[~live].any()
+            print(f"kernel grouped_matmul E={E_} C={C} d={d_} f={f} rows="
+                  f"{kind} (sum {int(rows.sum())}, {int((rows > 0).sum())} "
+                  f"experts) {dtype}: max|d|={err:.3e} tol={tol:g} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(bool(torch.isfinite(out).all()) and ok,
+                  f"grouped_matmul with rows disagrees with its plain "
+                  f"version (case {i}, {kind}, {dtype})")
+
 
 @torch.inference_mode()
 def greedy_trace(model, params, prompt: np.ndarray, n: int, device: str):
@@ -323,20 +389,21 @@ def engine_phase(fa, gm, cfg):
 @contextlib.contextmanager
 def k2_in_path(gm, model, tally: dict):
     """While active, K2's launches are tallied by phase and shape in
-    ``tally[(phase, (E, C, d, f))] = [launches, device ms]``: the phase is
-    "prefill" until ``model``'s first ``decode_step`` and "decode" after
-    it, and a launch's device time is read from CUDA events recorded on
-    the stream just before and just after it. The wrapper's own count
-    is left as it is."""
+    ``tally[(phase, (E, C, d, f))] = [launches, device ms, rows]``: the
+    phase is "prefill" until ``model``'s first ``decode_step`` and
+    "decode" after it, a launch's device time is read from CUDA events
+    recorded on the stream just before and just after it, and ``rows``
+    stacks each launch's ``rows`` (read after the run, not during it).
+    The wrapper's own count is left as it is."""
     real_launch = gm._launch
     phase, events = ["prefill"], []
 
-    def launch(x, w):
+    def launch(x, w, rows=None):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
         start.record()
-        o = real_launch(x, w)
+        o = real_launch(x, w, rows)
         end.record()
-        events.append((phase[0], (*x.shape, w.shape[2]), start, end))
+        events.append((phase[0], (*x.shape, w.shape[2]), start, end, rows))
         return o
 
     def decode_step(*args, **kw):
@@ -350,10 +417,16 @@ def k2_in_path(gm, model, tally: dict):
         gm._launch = real_launch
         del model.decode_step
     torch.cuda.synchronize()
-    for ph, shape, start, end in events:
-        n_ms = tally.setdefault((ph, shape), [0, 0.0])
+    rows_by_key: dict = {}
+    for ph, shape, start, end, rows in events:
+        n_ms = tally.setdefault((ph, shape), [0, 0.0, None])
         n_ms[0] += 1
         n_ms[1] += start.elapsed_time(end)
+        rows_by_key.setdefault((ph, shape), []).append(rows)
+    for key, rows in rows_by_key.items():
+        check(all(r is not None for r in rows),
+              f"a moe K2 launch at {key} had no rows")
+        tally[key][2] = torch.stack(rows).cpu()
 
 
 def moe_engine_phase(fa, gm, cfg):
@@ -392,14 +465,23 @@ def moe_engine_phase(fa, gm, cfg):
                             ("decode", moe_rows(cfg, 4, 1), 64)):
         want_tally[(phase, (E, C, d, d_e))] = 2 * L * steps
         want_tally[(phase, (E, C, d_e, d))] = L * steps
-    got = {k: n for k, (n, _) in tally.items()}
+    got = {k: n for k, (n, _, _) in tally.items()}
     print("moe main path K2 launches by phase and (E, C, d, f): "
           + json.dumps({f"{ph} {list(s)}": n for (ph, s), n in got.items()}))
     check(got == want_tally, f"moe K2 launches by phase and shape {got}, "
           f"want {want_tally}")
     engine["k2_in_path_ms"] = {
-        phase: sum(ms for (ph, _), (_, ms) in tally.items() if ph == phase)
+        phase: sum(ms for (ph, _), (_, ms, _) in tally.items() if ph == phase)
         for phase in ("prefill", "decode")}
+    for (ph, shape), (_, _, rows) in tally.items():
+        active = (rows > 0).sum(dim=1).double()
+        print(f"moe {ph} K2 {list(shape)} rows per launch: mean active "
+              f"experts {float(active.mean()):.4f} (max {int(active.max())}),"
+              f" mean occupied rows {float(rows.sum(dim=1).double().mean()):.4f}"
+              f" of {shape[0] * shape[1]}")
+        if ph == "decode":
+            check(int(active.max()) <= 16,
+                  "a decode K2 launch had more than 16 active experts")
     print("moe engine: " + json.dumps(engine))
     del eng, params
     gc.collect()
@@ -497,8 +579,13 @@ def k1_row(fa, ref, model, shape, dtype, launches):
 def timing_phase(fa, gm, ref, k1_dense, k1_moe, k2_tally, moe_cfg):
     """The ``kernels`` line: K1 at the dense and the moe prefill's shapes
     and K2 at each of the moe path's four shapes, fp32 (the main paths'
-    dtype), each with its launches on the main path. A K2 row also
-    carries its mean device time per launch inside the main run."""
+    dtype), each with its launches on the main path. K2's ``ms``,
+    ``plain_ms``, ``bound_ms`` and ``library_ms`` are the dense product
+    (no rows), like for like with ``torch.bmm``. A K2 row also carries,
+    per launch of the main run: its device time in the run
+    (``in_path_ms``), its time alone with the run's rows
+    (``in_path_alone_ms``), the least time those rows need
+    (``in_path_bound_ms``), and the mean active experts and rows."""
     dense = (4, 500, 500, 14, 2, 64, True)   # qwen2-0.5b's serving prefill
     kernels = [k1_row(fa, ref, "qwen2-0.5b", dense, torch.float32, k1_dense)]
     bf16 = k1_row(fa, ref, "qwen2-0.5b", dense, torch.bfloat16, 0)
@@ -507,11 +594,17 @@ def timing_phase(fa, gm, ref, k1_dense, k1_moe, k2_tally, moe_cfg):
     kernels.append(k1_row(fa, ref, moe_cfg.name, moe_attention(moe_cfg),
                           torch.float32, k1_moe))
 
-    for (phase, (E, C, d, f)), (n, in_path_ms) in k2_tally.items():
+    for (phase, (E, C, d, f)), (n, in_path_ms, rows) in k2_tally.items():
         x, w = gmm_inputs(E, C, d, f, torch.float32, seed=98)
         err = (gm.grouped_matmul(x, w)
                - ref.grouped_matmul_ref(x, w)).abs().max().item()
         bound_ms, bound_by = gmm_bound(E, C, d, f, torch.float32)
+        # the main run's rows: each launch's bound, and K2 alone cycling
+        # through the first 50 launches' rows
+        per_launch = [gmm_rows_bound(r, C, d, f, torch.float32) for r in rows]
+        t_bytes = sum(b for b, _ in per_launch) / n
+        t_ops = sum(o for _, o in per_launch) / n
+        some = itertools.cycle([r.cuda() for r in rows[:50]])
         kernels.append({
             "name": "grouped_matmul",
             "model": moe_cfg.name,
@@ -523,6 +616,12 @@ def timing_phase(fa, gm, ref, k1_dense, k1_moe, k2_tally, moe_cfg):
             "replaces": "src/repro/kernels/moe_gmm.py:21",
             "launches": n,
             "in_path_ms": in_path_ms / n,
+            "in_path_alone_ms": cuda_ms(
+                lambda: gm.grouped_matmul(x, w, next(some))),
+            "in_path_bound_ms": sum(max(b, o) for b, o in per_launch) / n,
+            "in_path_bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "mean_active_experts": float((rows > 0).sum(dim=1).double().mean()),
+            "mean_rows": float(rows.sum(dim=1).double().mean()),
             "max_abs_err": err,
             "ms": cuda_ms(lambda: gm.grouped_matmul(x, w)),
             "plain_ms": cuda_ms(lambda: ref.grouped_matmul_ref(x, w)),
@@ -551,6 +650,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    for lib, log in _build.logs.items():   # -Xptxas -v: registers, spills
+        for line in log.splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print(f"ptxas {lib}: {line.split('ptxas info    : ')[-1]}")
 
     moe_cfg = ARCHS["qwen2-moe-a2.7b"]
     kernel_phase(fa, gm, ref, moe_cfg)
@@ -566,11 +669,11 @@ def main() -> int:
     for phase, total in (("prefill", moe_engine["prefill_ms"]),
                          ("decode", moe_engine["decode_step_ms"] * 64)):
         ms = moe_engine["k2_in_path_ms"][phase]
-        alone = sum(r["ms"] * r["launches"] for r in kernels
+        alone = sum(r["in_path_alone_ms"] * r["launches"] for r in kernels
                     if r.get("phase") == phase)
         print(f"moe {phase} time in grouped_matmul, measured in the main "
               f"run: {ms:.3f} ms of {total:.2f} ms ({100 * ms / total:.1f}%); "
-              f"launches x time alone: {alone:.3f} ms")
+              f"launches x time alone with the run's rows: {alone:.3f} ms")
 
     print(name)
     print(json.dumps({"kernels": kernels}))

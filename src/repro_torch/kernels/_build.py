@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> {C function: (restype, argtypes)}; pointers and the stream are
@@ -32,12 +32,15 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "grouped_matmul": {
-        "repro_grouped_matmul": (_I, [_P, _P, _P] + [_I] * 5 + [_P]),
+        "repro_grouped_matmul": (_I, [_P, _P, _P, _P] + [_I] * 5 + [_P]),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# name -> nvcc's output of the build made in this process (``-Xptxas -v``:
+# each kernel's registers, shared memory and spills).
+logs: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -92,6 +95,7 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
     for n, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            logs[n] = log
             os.replace(tmp, todo[n])  # atomic: readers never see half a file
         else:
             errors.append(f"nvcc failed for {n}.cu:\n{log}")

@@ -6,6 +6,7 @@ Mirrors the reference package's ``kernels/ref.py``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -40,8 +41,13 @@ def gqa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, h, s, hd).transpose(1, 2)
 
 
-def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                       rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (E, C, d); w: (E, d, f) -> (E, C, f). fp32 accumulation,
-    output in x.dtype."""
+    output in x.dtype. With ``rows`` (E,), output rows r >= rows[e] of
+    expert e are 0 (rows[e] clamped to [0, C])."""
     out = torch.einsum("ecd,edf->ecf", x.float(), w.float())
+    if rows is not None:
+        live = torch.arange(x.shape[1], device=x.device) < rows[:, None]
+        out = torch.where(live[..., None], out, 0.0)
     return out.to(x.dtype)

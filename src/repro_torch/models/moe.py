@@ -2,18 +2,24 @@
 dispatch, the expert FFN as three grouped GEMMs.
 
 Port of the reference package's ``models/moe.py``. Dispatch scatters
-tokens into per-(expert, group) capacity slots (dropped tokens fall
-through on the residual); the experts run densely over every slot as
+tokens into capacity slots, C per (group, expert) (dropped tokens fall
+through on the residual); the experts run over the occupied slots as
 ``kernels.ops.grouped_matmul`` calls, which launch the Hopper kernel
 (``kernels/csrc/grouped_matmul.cu``) on CUDA tensors and the plain
 version on CPU tensors. Combine = gather + gate-weighted sum over the k
 slots of each token, plus the shared experts.
 
 Layout: the reference's dispatch buffer is group-major, (G, E, C, d).
-The port's is expert-major, (E, G*C, d), with token slot
-``e*G*C + g*C + rank``, so each expert GEMM is one kernel call on a
-contiguous (E, G*C, .) tensor with no permute copy. Over the same slots
-it computes the reference's ``gecd,edf->gecf``.
+The port's is expert-major, (E, G*C, d), so each expert GEMM is one
+kernel call on a contiguous (E, G*C, .) tensor with no permute copy.
+Each expert's kept assignments are packed as a prefix of its G*C rows:
+with n[g, e] the kept assignments of group g to expert e and off[g, e]
+their exclusive cumulative sum over g, an assignment of rank r takes
+slot ``e*G*C + off[g, e] + r``, and rows[e] = sum_g n[g, e] rows of
+expert e are occupied. The GEMMs take ``rows``, so the kernel reads
+only the occupied rows and only the weights of experts that hold one.
+Over the same kept assignments each output row is the dot product of
+the reference's ``gecd,edf->gecf``.
 """
 from __future__ import annotations
 
@@ -136,8 +142,14 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     ranks = torch.empty_like(ranks_sorted).scatter_(1, order, ranks_sorted)
     keep = ranks < C
     GC = G * C
-    group = torch.arange(G, device=x.device)[:, None]
-    slot = torch.where(keep, flat_e * GC + group * C + ranks, E * GC)
+    # Pack each expert's kept rows as a prefix: counts by scatter-add,
+    # so nothing here waits on the device.
+    n_ge = torch.zeros(G, E, dtype=torch.int64, device=x.device).scatter_add_(
+        1, flat_e, keep.long())                              # (G, E)
+    off = torch.cumsum(n_ge, dim=0) - n_ge
+    rows = n_ge.sum(dim=0).to(torch.int32)                   # (E,)
+    slot = torch.where(keep, flat_e * GC + off.gather(1, flat_e) + ranks,
+                       E * GC)
 
     # Expert-major slot buffer; its last row takes every dropped
     # assignment and is never read.
@@ -147,9 +159,9 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     h = buf[:E * GC].view(E, GC, d)
 
     # --- grouped expert GEMMs (kernel K2 on CUDA) ---
-    g_ = F.silu(kops.grouped_matmul(h, p.w_gate))
-    u = kops.grouped_matmul(h, p.w_up)
-    y_e = kops.grouped_matmul(g_ * u, p.w_down)              # (E, GC, d)
+    g_ = F.silu(kops.grouped_matmul(h, p.w_gate, rows))
+    u = kops.grouped_matmul(h, p.w_up, rows)
+    y_e = kops.grouped_matmul(g_ * u, p.w_down, rows)        # (E, GC, d)
 
     # --- combine: gather + gate-weighted sum over the k slots ---
     y_tok = y_e.reshape(E * GC, d).index_select(

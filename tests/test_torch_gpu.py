@@ -135,7 +135,8 @@ def _gmm_inputs(shape, dtype, seed=0):
     (1, 1, 1, 1),
     (60, 192, 2048, 1408),   # qwen2-moe-a2.7b prefill: gate and up
     (60, 192, 1408, 2048),   # prefill: down
-    (60, 32, 2048, 1408),    # decode at B = 4
+    (60, 32, 2048, 1408),    # decode at B = 4: gate and up
+    (60, 32, 1408, 2048),    # decode: down
 ])
 def test_grouped_matmul_matches_plain(hopper, shape, dtype):
     x, w = _gmm_inputs(shape, dtype)
@@ -168,6 +169,89 @@ def test_grouped_matmul_rejects_what_it_cannot_run(hopper):
         gm.grouped_matmul(x, w.cpu())
     with pytest.raises(ValueError, match="non-empty"):
         gm.grouped_matmul(x[:, :0].contiguous(), w)
+    assert gm.launches == before
+
+
+def _rows(kind, E, C, seed=0):
+    """(E,) int32 rows on the card: "decode" gives 15 experts 1-4 rows and
+    the rest 0, as a decode step of B = 4 at top-4 does; "ragged" draws
+    from [0, C] with rows[0] = 0 and rows[-1] = C; "zero" and "full" are
+    all 0 and all C."""
+    rng = np.random.default_rng(seed)
+    if kind == "decode":
+        r = np.zeros(E, np.int32)
+        r[rng.choice(E, size=min(15, E), replace=False)] = rng.integers(
+            1, min(4, C) + 1, min(15, E))
+    elif kind == "ragged":
+        r = rng.integers(0, C + 1, E).astype(np.int32)
+        r[0], r[-1] = 0, C
+    else:
+        r = np.full(E, 0 if kind == "zero" else C, np.int32)
+    return torch.from_numpy(r).cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kind", [
+    ((60, 32, 2048, 1408), "decode"),    # the decode step's gate and up
+    ((60, 32, 1408, 2048), "decode"),    # and its down
+    ((60, 192, 2048, 1408), "ragged"),   # the prefill's gate and up
+    ((60, 192, 1408, 2048), "ragged"),   # and its down
+    ((60, 32, 2048, 1408), "zero"),
+    ((60, 192, 1408, 2048), "zero"),
+    ((60, 32, 2048, 1408), "full"),
+    ((60, 192, 2048, 1408), "full"),
+    ((4, 128, 256, 128), "ragged"),      # the reference's sweep
+    ((2, 64, 512, 96), "ragged"),
+    ((6, 100, 300, 130), "ragged"),
+    ((6, 20, 300, 130), "ragged"),       # ragged, decode variant
+    ((2, 1, 1, 1), "ragged"),
+])
+def test_grouped_matmul_rows_matches_plain(hopper, shape, kind, dtype):
+    """With ``rows``: the occupied rows equal the plain version, and the
+    rest are exactly 0."""
+    x, w = _gmm_inputs(shape, dtype)
+    rows = _rows(kind, shape[0], shape[1])
+    live = torch.arange(shape[1], device="cuda") < rows[:, None]
+    x = torch.where(live[..., None], x, 0)
+    out = gm.grouped_matmul(x, w, rows)
+    want = grouped_matmul_ref(x, w, rows)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (shape[0], shape[1], shape[3])
+    tol = _tol(dtype)
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert not out[~live].any()
+
+
+@pytest.mark.parametrize("shape", [(8, 32, 256, 192), (8, 192, 256, 192)])
+def test_grouped_matmul_rows_reads_nothing_past_them(hopper, shape):
+    """NaN in every row of x past rows[e] and in the weights of experts
+    with rows[e] = 0 reaches no output: the kernel never reads them."""
+    x, w = _gmm_inputs(shape, torch.float32)
+    rows = torch.tensor([0, 1, 3, 0, 4, shape[1], 70, 0],
+                        dtype=torch.int32, device="cuda").clamp(max=shape[1])
+    live = torch.arange(shape[1], device="cuda") < rows[:, None]
+    want = grouped_matmul_ref(torch.where(live[..., None], x, 0), w, rows)
+    x = torch.where(live[..., None], x, float("nan"))
+    w[rows == 0] = float("nan")
+    out = gm.grouped_matmul(x, w, rows)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+def test_grouped_matmul_rejects_bad_rows(hopper):
+    x, w = _gmm_inputs((4, 16, 32, 8), torch.float32)
+    rows = torch.full((4,), 16, dtype=torch.int32, device="cuda")
+    before = gm.launches
+    with pytest.raises(TypeError, match="rows"):
+        gm.grouped_matmul(x, w, rows.long())
+    with pytest.raises(ValueError, match="rows"):
+        gm.grouped_matmul(x, w, rows[:3].contiguous())
+    with pytest.raises(ValueError, match="rows"):
+        gm.grouped_matmul(x, w, torch.full((8,), 16, dtype=torch.int32,
+                                           device="cuda")[::2])
+    with pytest.raises(ValueError, match="rows"):
+        gm.grouped_matmul(x, w, rows.cpu())
     assert gm.launches == before
 
 

@@ -121,6 +121,81 @@ def test_build_command_covers_grouped_matmul(monkeypatch, tmp_path):
     assert _build.library_path("grouped_matmul").parent == _build.BUILD_DIR
 
 
+def _rows_case(shape, dtype, seed=0):
+    """K2 inputs whose rows past rows[e] are zero, with rows[0] = 0 and
+    rows[-1] = C (and the rest drawn from [0, C]); numpy rows and both
+    frameworks' x, w in ``dtype``."""
+    E, C, d, f = shape
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, C + 1, E).astype(np.int32)
+    rows[0], rows[-1] = 0, C
+    x = rng.standard_normal((E, C, d)).astype(np.float32)
+    x[np.arange(C)[None, :] >= rows[:, None]] = 0.0
+    w = (rng.standard_normal((E, d, f)) / math.sqrt(d)).astype(np.float32)
+    return rows, ((jnp.asarray(x, JDT[dtype]), jnp.asarray(w, JDT[dtype])),
+                  (torch.from_numpy(x).to(TDT[dtype]),
+                   torch.from_numpy(w).to(TDT[dtype])))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [
+    (4, 128, 256, 128),
+    (6, 100, 300, 130),   # ragged everywhere
+    (5, 32, 64, 48),      # the decode variant's C
+    (2, 1, 1, 1),
+])
+def test_grouped_matmul_rows_matches_reference(shape, dtype):
+    """The ``rows`` contract on the plain path: for x whose rows past
+    rows[e] are zero, the product equals the Pallas kernel (interpret
+    mode) and the reference's oracle, with the rows past rows[e] zero."""
+    rows, ((jx, jw), (tx, tw)) = _rows_case(shape, dtype)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-5, atol=2e-5)
+    want_kernel = _np(jops.grouped_matmul(jx, jw))
+    want_ref = _np(jref.grouped_matmul_ref(jx, jw))
+    out = tops.grouped_matmul(tx, tw, torch.from_numpy(rows))
+    assert out.dtype == TDT[dtype]
+    np.testing.assert_allclose(_np(out), want_kernel, **tol)
+    np.testing.assert_allclose(_np(out), want_ref, **tol)
+    dead = np.arange(shape[1])[None, :] >= rows[:, None]
+    assert not _np(out)[dead].any()
+
+
+def test_grouped_matmul_rows_zero_whatever_x_holds():
+    """Rows past rows[e] come out 0 even where x is not zero there, and
+    rows[e] is clamped to [0, C]."""
+    _, (x, w) = _gmm_inputs((4, 8, 16, 8), "float32")
+    rows = torch.tensor([-3, 0, 5, 99], dtype=torch.int32)
+    out = tops.grouped_matmul(x, w, rows)
+    full = tops.grouped_matmul(x, w)
+    assert not out[:2].any()
+    torch.testing.assert_close(out[2, :5], full[2, :5], rtol=0, atol=0)
+    assert not out[2, 5:].any()
+    torch.testing.assert_close(out[3], full[3], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "length", "rank", "strided",
+                                 "device"])
+def test_grouped_matmul_rejects_bad_rows(bad):
+    x, w = torch.zeros(4, 8, 16), torch.zeros(4, 16, 8)
+    rows = torch.full((4,), 8, dtype=torch.int32)
+    err = ValueError
+    if bad == "dtype":
+        rows, err = rows.long(), TypeError
+    elif bad == "length":
+        rows = torch.full((5,), 8, dtype=torch.int32)
+    elif bad == "rank":
+        rows = rows[:, None]
+    elif bad == "strided":
+        rows = torch.full((8,), 8, dtype=torch.int32)[::2]
+    else:
+        rows = torch.full((4,), 8, dtype=torch.int32, device="meta")
+    before = gm.launches
+    with pytest.raises(err, match="rows"):
+        tops.grouped_matmul(x, w, rows)
+    assert gm.launches == before
+
+
 # ----------------------------------------------------------------------
 # moe_apply
 @pytest.fixture(scope="module")
@@ -162,9 +237,9 @@ def test_moe_experts_run_through_grouped_matmul(moe_pair, monkeypatch):
     calls = []
     real = tops.grouped_matmul
 
-    def counting(x, w):
+    def counting(x, w, rows=None):
         calls.append((tuple(x.shape), tuple(w.shape)))
-        return real(x, w)
+        return real(x, w, rows)
 
     monkeypatch.setattr(tops, "grouped_matmul", counting)
     B, S = 4, 1   # decode at B = 4: G = 4, Tg = 1, C = 8
@@ -172,6 +247,80 @@ def test_moe_experts_run_through_grouped_matmul(moe_pair, monkeypatch):
     E, d, d_e = cfg.n_experts, cfg.d_model, cfg.d_expert
     assert calls == [((E, 32, d), (E, d, d_e)), ((E, 32, d), (E, d, d_e)),
                      ((E, 32, d_e), (E, d_e, d))]
+
+
+def test_moe_apply_passes_rows_to_every_gemm(moe_pair, monkeypatch):
+    """All three expert GEMMs get the same (E,) int32 ``rows``: at a
+    dropless decode step of B = 4 it counts the B * k assignments."""
+    _, tp = moe_pair
+    cfg = SMOKES[ARCH]
+    got = []
+    real = tops.grouped_matmul
+
+    def recording(x, w, rows=None):
+        got.append(rows)
+        return real(x, w, rows)
+
+    monkeypatch.setattr(tops, "grouped_matmul", recording)
+    x = np.random.default_rng(7).standard_normal(
+        (4, 1, cfg.d_model)).astype(np.float32)
+    TM.moe_apply(tp, cfg, torch.from_numpy(x))
+    assert len(got) == 3 and all(r is got[0] for r in got)
+    rows = got[0]
+    assert rows.dtype == torch.int32 and rows.shape == (cfg.n_experts,)
+    assert int(rows.sum()) == 4 * cfg.n_experts_per_tok
+    assert int(rows.max()) <= 4
+
+
+@pytest.mark.parametrize("B,S,factor", [
+    (2, 16, 1.25),    # dropless: Tg = 16 <= 128
+    (2, 160, 1.25),   # Tg = 160 > 128: capacity from the factor
+    (2, 160, 0.25),   # forced drops
+])
+def test_moe_dispatch_packs_each_expert_as_a_prefix(moe_pair, monkeypatch,
+                                                    B, S, factor):
+    """Each expert's kept rows are a prefix of its G*C rows, in group
+    order: rows[e] equals the count of non-zero slots of expert e in the
+    reference's dispatch buffer over every group, and the prefix holds
+    the reference's rows of (g, e) for g = 0, 1, ... in turn."""
+    import repro.distributed.sharding as j_sharding
+
+    jp, tp = moe_pair
+    cfg = SMOKES[ARCH]
+    E = cfg.n_experts
+    x = np.random.default_rng(B * S + 1).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+    j_bufs = []
+    real_constrain = j_sharding.maybe_constrain
+
+    def recording_constrain(a, *spec):
+        if not j_bufs:   # the first call pins the dispatch buffer
+            j_bufs.append(np.asarray(a))
+        return real_constrain(a, *spec)
+
+    monkeypatch.setattr(j_sharding, "maybe_constrain", recording_constrain)
+    j_moe_apply(jp, J_SMOKES[ARCH], jnp.asarray(x), capacity_factor=factor)
+    G = j_n_groups(B)
+    j_buf = j_bufs[0].reshape(G, E, -1, cfg.d_model)     # (G, E, C, d)
+    j_live = np.abs(j_buf).sum(-1) > 0                   # (G, E, C)
+
+    seen = []
+    real = tops.grouped_matmul
+
+    def recording(h, w, rows=None):
+        if not seen:
+            seen.append((h.clone(), rows.clone()))
+        return real(h, w, rows)
+
+    monkeypatch.setattr(tops, "grouped_matmul", recording)
+    TM.moe_apply(tp, cfg, torch.from_numpy(x), capacity_factor=factor)
+    h, rows = seen[0]
+    h, rows = h.numpy(), rows.numpy()
+    np.testing.assert_array_equal(rows, j_live.sum(axis=(0, 2)))
+    for e in range(E):
+        assert not h[e, rows[e]:].any()
+        want = np.concatenate([j_buf[g, e][j_live[g, e]] for g in range(G)])
+        np.testing.assert_array_equal(h[e, :rows[e]], want)
 
 
 def test_capacity_and_groups_are_the_reference_s():
