@@ -10,25 +10,29 @@ Run from the repository root, with nothing else on the command line:
    ``nvcc`` per source, all at once).
 2. Kernels: holds each kernel against its plain PyTorch version on the
    card: flash attention (K1) at both serving paths' prefill shapes and
-   at ragged, wide-head, Sq != Sk and non-causal cases; the grouped GEMM
-   (K2) at the moe path's shapes, the reference's sweep and (1,1,1,1),
-   densely and with ``rows`` (occupied rows per expert) as the moe path
-   passes them.
+   at ragged, wide-head, Sq != Sk, non-causal, off-tile and GQA-group
+   cases, in fp32 and bf16, and in fp32 with q scaled by 8 (a peaked
+   softmax) at both prefill shapes; the grouped GEMM (K2) at the moe
+   path's shapes, the reference's sweep and (1,1,1,1), densely and with
+   ``rows`` (occupied rows per expert) as the moe path passes them.
 3. Dense engine: serves full-width qwen2-0.5b (random weights from a
    seed) through ``ServeEngine.generate``, checks that every layer's
-   prefill attention went through K1, and holds the card against the
-   port's CPU path on the same weights.
+   prefill attention went through K1 (each launch's device time read
+   from CUDA events around it), and holds the card against the port's
+   CPU path on the same weights.
 4. Moe engine: serves full-width, 24-layer qwen2-moe-a2.7b in fp32
    (14.3 B parameters, 57 GB, drawn on the card from a CUDA generator)
    through ``ServeEngine.generate``, checks that every prefill
    attention went through K1 and every expert GEMM through K2 (counted
-   by phase and shape, each launch's device time read from CUDA events
-   around it, its ``rows`` read after the run), then holds the card
-   against the CPU path at full width and 2 layers.
+   by kernel, phase and shape, each launch's device time read from CUDA
+   events around it, K2's ``rows`` read after the run), then holds the
+   card against the CPU path at full width and 2 layers.
 5. Timing: times each kernel at each of its main-path shapes, its plain
    version and the PyTorch library call that computes the same
-   function, beside the least time the card could take for the same
-   work; K2 also with the ``rows`` of the main run, beside the least
+   function (with the kernels that call ran, from torch.profiler),
+   beside the least time the card could take for the same work, and
+   beside its device time per launch inside the main run; K1 also in
+   bf16; K2 also with the ``rows`` of the main run, beside the least
    time for what those rows need.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}``
@@ -54,6 +58,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 H100_FP32_FLOPS = 67e12      # non-tensor fp32, SXM, 700 W (data sheet)
+H100_TF32_FLOPS = 494.7e12   # dense tensor-core tf32
 H100_BF16_FLOPS = 989e12     # dense tensor-core bf16
 H100_BYTES_PER_S = 3.35e12   # HBM3
 
@@ -93,21 +98,35 @@ def attention_inputs(B, Sq, Sk, H, Hkv, hd, dtype, seed):
 
 
 def attention_bound(B, Sq, Sk, H, Hkv, hd, causal, dtype):
-    """(ms, "bytes" | "operations"): the least time an H100 could take.
+    """{"bound_ms", "bound_by", ...}: the least time an H100 could take.
     Operations are the multiply-adds of q k^T and p v over the (query,
     key) pairs these shapes leave unmasked; bytes read q, k, v once and
-    write o once."""
+    write o once. bf16: operations at the bf16 tensor-core peak. fp32:
+    the lesser of two bounds, both given: operations at the fp32 peak of
+    the CUDA cores, and 3xTF32's three tf32 products per operation at the
+    tf32 tensor-core peak (the route K1 takes), each beside the bytes."""
     if causal:
         pairs = sum(min(Sk, r + Sk - Sq + 1) for r in range(Sq))
     else:
         pairs = Sq * Sk
     ops = 4 * B * H * hd * pairs
     elt = torch.finfo(dtype).bits // 8
-    nbytes = elt * (2 * B * Sq * H * hd + 2 * B * Sk * Hkv * hd)
-    peak = H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
-    t_ops, t_bytes = ops / peak, nbytes / H100_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    t_bytes = elt * (2 * B * Sq * H * hd + 2 * B * Sk * Hkv * hd) \
+        / H100_BYTES_PER_S * 1e3
+
+    def bound(t_ops):
+        return (max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    if dtype != torch.float32:
+        ms, by = bound(ops / H100_BF16_FLOPS * 1e3)
+        return {"bound_ms": ms, "bound_by": by}
+    fp32, tf32x3 = (bound(ops / H100_FP32_FLOPS * 1e3),
+                    bound(3 * ops / H100_TF32_FLOPS * 1e3))
+    ms, by = min(fp32, tf32x3)
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_fp32_ms": fp32[0], "bound_fp32_by": fp32[1],
+            "bound_3xtf32_ms": tf32x3[0], "bound_3xtf32_by": tf32x3[1]}
 
 
 def gmm_inputs(E, C, d, f, dtype, seed):
@@ -216,7 +235,8 @@ def engine_bounds(cfg, B, S, max_seq):
 def kernel_phase(fa, gm, ref, moe_cfg) -> None:
     # (B, Sq, Sk, H, Hkv, hd, causal): serving shape, ragged, the moe
     # prefill's shape, wide head, Sq != Sk (bottom-right diagonal),
-    # non-causal ragged
+    # non-causal ragged; then S off every query and key tile, Sq < Sk
+    # off the tiles, GQA groups 1, 7 and 8
     cases = [
         (4, 512, 512, 14, 2, 64, True),
         (4, 500, 500, 14, 2, 64, True),
@@ -224,22 +244,42 @@ def kernel_phase(fa, gm, ref, moe_cfg) -> None:
         (2, 384, 384, 8, 2, 128, True),
         (2, 128, 384, 14, 2, 64, True),
         (2, 200, 200, 8, 2, 64, False),
+        (1, 17, 17, 4, 4, 128, True),
+        (2, 127, 127, 7, 1, 64, True),
+        (1, 129, 129, 8, 1, 128, True),
+        (2, 129, 127, 8, 8, 64, False),
+        (2, 127, 500, 7, 1, 128, True),
+        (1, 1, 500, 8, 1, 64, True),
     ]
-    for i, (B, Sq, Sk, H, Hkv, hd, causal) in enumerate(cases):
-        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-            q, k, v = attention_inputs(B, Sq, Sk, H, Hkv, hd, dtype, seed=i)
-            out = fa.flash_attention(q, k, v, causal=causal)
-            want = ref.gqa_attention_ref(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            out, want = out.float(), want.float()
-            err = (out - want).abs().max().item()
-            ok = torch.allclose(out, want, rtol=tol, atol=tol)
-            print(f"kernel flash_attention B={B} Sq={Sq} Sk={Sk} H={H} "
-                  f"Hkv={Hkv} hd={hd} causal={causal} {dtype}: "
-                  f"max|d|={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
-            check(bool(torch.isfinite(out).all()) and ok,
-                  f"flash_attention disagrees with its plain version "
-                  f"(case {i}, {dtype})")
+    checks = [(c, dtype, tol, 1) for c in cases for dtype, tol in
+              ((torch.float32, 2e-5), (torch.bfloat16, 2e-2))]
+    # q scaled by 8 (logits x8, a peaked softmax), fp32 at both prefill
+    # shapes: plain TF32 is 1e-2 off here, so the small parts of 3xTF32
+    # decide. (In bf16 the plain version rounds the scores to bf16.)
+    checks += [(c, torch.float32, 2e-5, 8) for c in cases[1:3]]
+    for i, ((B, Sq, Sk, H, Hkv, hd, causal), dtype, tol, scale) in \
+            enumerate(checks):
+        q, k, v = attention_inputs(B, Sq, Sk, H, Hkv, hd, dtype, seed=i)
+        q = q * scale
+        out = fa.flash_attention(q, k, v, causal=causal)
+        want = ref.gqa_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        out, want = out.float(), want.float()
+        err = (out - want).abs().max().item()
+        ok = torch.allclose(out, want, rtol=tol, atol=tol)
+        note = ""
+        if scale != 1:   # the plain fp32 version is off the exact result too
+            exact = ref.gqa_attention_ref(q.double(), k.double(), v.double(),
+                                          causal=causal).float()
+            note = (f" q x{scale}; against float64: kernel "
+                    f"{(out - exact).abs().max().item():.3e}, plain "
+                    f"{(want - exact).abs().max().item():.3e}")
+        print(f"kernel flash_attention B={B} Sq={Sq} Sk={Sk} H={H} "
+              f"Hkv={Hkv} hd={hd} causal={causal} {dtype}: "
+              f"max|d|={err:.3e} tol={tol:g}{note} {'ok' if ok else 'FAIL'}")
+        check(bool(torch.isfinite(out).all()) and ok,
+              f"flash_attention disagrees with its plain version "
+              f"(case {i}, {dtype}, q x{scale})")
 
     # (E, C, d, f): the moe path's prefill gate/up and down and its
     # decode step, the reference's sweep (ragged edges), one element
@@ -361,7 +401,77 @@ def serve(eng, cfg, counters, watch=contextlib.nullcontext()):
     return prompts, launches, engine
 
 
+@contextlib.contextmanager
+def in_path(fa, gm, model, tally: dict):
+    """While active, K1's and K2's launches are tallied by kernel, phase
+    and shape in ``tally[(kernel, phase, shape)] = [launches, device ms,
+    rows]``: the phase is "prefill" until ``model``'s first
+    ``decode_step`` and "decode" after it; K1's shape is (B, Sq, Sk, H,
+    Hkv, hd), K2's (E, C, d, f). A launch's device time is read from CUDA
+    events recorded on the stream just before and just after it, and
+    ``rows`` stacks each K2 launch's ``rows`` (read after the run, not
+    during it; None for K1). The wrappers' own counts are left as they
+    are."""
+    real_fa, real_gm = fa._launch, gm._launch
+    phase, events = ["prefill"], []
+
+    def timed(name, shape, rows, run):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        o = run()
+        end.record()
+        events.append((name, phase[0], shape, start, end, rows))
+        return o
+
+    def fa_launch(q, k, v, causal):
+        shape = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3])
+        return timed("flash_attention", shape, None,
+                     lambda: real_fa(q, k, v, causal))
+
+    def gm_launch(x, w, rows=None):
+        return timed("grouped_matmul", (*x.shape, w.shape[2]), rows,
+                     lambda: real_gm(x, w, rows))
+
+    def decode_step(*args, **kw):
+        phase[0] = "decode"
+        return type(model).decode_step(model, *args, **kw)
+
+    fa._launch, gm._launch, model.decode_step = fa_launch, gm_launch, \
+        decode_step
+    try:
+        yield
+    finally:
+        fa._launch, gm._launch = real_fa, real_gm
+        del model.decode_step
+    torch.cuda.synchronize()
+    rows_by_key: dict = {}
+    for name, ph, shape, start, end, rows in events:
+        key = (name, ph, shape)
+        n_ms = tally.setdefault(key, [0, 0.0, None])
+        n_ms[0] += 1
+        n_ms[1] += start.elapsed_time(end)
+        if name == "grouped_matmul":
+            rows_by_key.setdefault(key, []).append(rows)
+    for key, rows in rows_by_key.items():
+        check(all(r is not None for r in rows),
+              f"a moe K2 launch at {key} had no rows")
+        tally[key][2] = torch.stack(rows).cpu()
+
+
+def check_k1_in_path(cfg, tally: dict) -> None:
+    """One K1 launch per layer, all in the prefill, at its serving shape."""
+    want = {("flash_attention", "prefill", (4, 500, 500, cfg.n_heads,
+                                            cfg.n_kv_heads, cfg.d_head)):
+            cfg.n_layers}
+    got = {k: n for k, (n, _, _) in tally.items() if k[0] == "flash_attention"}
+    check(got == want, f"{cfg.name} K1 launches by phase and shape {got}, "
+          f"want {want}")
+
+
 def engine_phase(fa, gm, cfg):
+    """Full-width dense serving on the card. Returns K1's launches and
+    in-path device time by phase and shape, and the engine's numbers,
+    all from the main path's run."""
     from repro_torch import ServeEngine, build_model
 
     t0 = time.perf_counter()
@@ -369,11 +479,14 @@ def engine_phase(fa, gm, cfg):
     n_params = sum(p.numel() for p in eng.params.parameters())
     print(f"engine init (full width, {n_params} params, fp32): "
           f"{time.perf_counter() - t0:.1f} s")
-    prompts, launches, engine = serve(eng, cfg, (fa, gm))
+    tally: dict = {}
+    prompts, launches, engine = serve(eng, cfg, (fa, gm),
+                                      in_path(fa, gm, eng.model, tally))
     check(launches["flash_attention"] == cfg.n_layers,
           f"prefill made {launches['flash_attention']} flash_attention "
           f"launches, want {cfg.n_layers}")
     check(launches["grouped_matmul"] == 0, "the dense path ran K2")
+    check_k1_in_path(cfg, tally)
     print("engine: " + json.dumps(engine))
 
     # the card against the port's CPU path, same seed -> same weights
@@ -383,57 +496,14 @@ def engine_phase(fa, gm, cfg):
     n = 16
     compare_card_cpu(greedy_trace(model, eng.params, prompt, n, "cuda"),
                      greedy_trace(model, cpu_params, prompt, n, "cpu"), n)
-    return launches["flash_attention"], engine["prefill_ms"]
-
-
-@contextlib.contextmanager
-def k2_in_path(gm, model, tally: dict):
-    """While active, K2's launches are tallied by phase and shape in
-    ``tally[(phase, (E, C, d, f))] = [launches, device ms, rows]``: the
-    phase is "prefill" until ``model``'s first ``decode_step`` and
-    "decode" after it, a launch's device time is read from CUDA events
-    recorded on the stream just before and just after it, and ``rows``
-    stacks each launch's ``rows`` (read after the run, not during it).
-    The wrapper's own count is left as it is."""
-    real_launch = gm._launch
-    phase, events = ["prefill"], []
-
-    def launch(x, w, rows=None):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
-        start.record()
-        o = real_launch(x, w, rows)
-        end.record()
-        events.append((phase[0], (*x.shape, w.shape[2]), start, end, rows))
-        return o
-
-    def decode_step(*args, **kw):
-        phase[0] = "decode"
-        return type(model).decode_step(model, *args, **kw)
-
-    gm._launch, model.decode_step = launch, decode_step
-    try:
-        yield
-    finally:
-        gm._launch = real_launch
-        del model.decode_step
-    torch.cuda.synchronize()
-    rows_by_key: dict = {}
-    for ph, shape, start, end, rows in events:
-        n_ms = tally.setdefault((ph, shape), [0, 0.0, None])
-        n_ms[0] += 1
-        n_ms[1] += start.elapsed_time(end)
-        rows_by_key.setdefault((ph, shape), []).append(rows)
-    for key, rows in rows_by_key.items():
-        check(all(r is not None for r in rows),
-              f"a moe K2 launch at {key} had no rows")
-        tally[key][2] = torch.stack(rows).cpu()
+    return tally, engine
 
 
 def moe_engine_phase(fa, gm, cfg):
     """Full-width, full-depth moe serving on the card, weights drawn on
-    the card. Returns K1's launches, K2's launches and in-path device
-    time by phase and shape, and the engine's numbers, all from the
-    main path's run."""
+    the card. Returns K1's and K2's launches and in-path device time by
+    phase and shape, and the engine's numbers, all from the main path's
+    run."""
     from repro_torch import ServeEngine, build_model
 
     gc.collect()
@@ -449,7 +519,7 @@ def moe_engine_phase(fa, gm, cfg):
           f"{time.perf_counter() - t0:.1f} s")
     tally: dict = {}
     _, launches, engine = serve(eng, cfg, (fa, gm),
-                                k2_in_path(gm, eng.model, tally))
+                                in_path(fa, gm, eng.model, tally))
     L, want = cfg.n_layers, 3 * cfg.n_layers * (1 + 64)
     check(launches["flash_attention"] == L,
           f"moe prefill made {launches['flash_attention']} flash_attention "
@@ -457,6 +527,7 @@ def moe_engine_phase(fa, gm, cfg):
     check(launches["grouped_matmul"] == want,
           f"moe generate made {launches['grouped_matmul']} grouped_matmul "
           f"launches, want 3 * {L} * (1 + 64) = {want}")
+    check_k1_in_path(cfg, tally)
     # gate and up run at (E, G*C, d) x (E, d, d_e), down at
     # (E, G*C, d_e) x (E, d_e, d), once per layer per forward
     E, d, d_e = cfg.n_experts, cfg.d_model, cfg.d_expert
@@ -465,15 +536,17 @@ def moe_engine_phase(fa, gm, cfg):
                             ("decode", moe_rows(cfg, 4, 1), 64)):
         want_tally[(phase, (E, C, d, d_e))] = 2 * L * steps
         want_tally[(phase, (E, C, d_e, d))] = L * steps
-    got = {k: n for k, (n, _, _) in tally.items()}
+    k2 = {(ph, s): v for (name, ph, s), v in tally.items()
+          if name == "grouped_matmul"}
+    got = {k: n for k, (n, _, _) in k2.items()}
     print("moe main path K2 launches by phase and (E, C, d, f): "
           + json.dumps({f"{ph} {list(s)}": n for (ph, s), n in got.items()}))
     check(got == want_tally, f"moe K2 launches by phase and shape {got}, "
           f"want {want_tally}")
     engine["k2_in_path_ms"] = {
-        phase: sum(ms for (ph, _), (_, ms, _) in tally.items() if ph == phase)
+        phase: sum(ms for (ph, _), (_, ms, _) in k2.items() if ph == phase)
         for phase in ("prefill", "decode")}
-    for (ph, shape), (_, _, rows) in tally.items():
+    for (ph, shape), (_, _, rows) in k2.items():
         active = (rows > 0).sum(dim=1).double()
         print(f"moe {ph} K2 {list(shape)} rows per launch: mean active "
               f"experts {float(active.mean()):.4f} (max {int(active.max())}),"
@@ -486,7 +559,7 @@ def moe_engine_phase(fa, gm, cfg):
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
-    return launches["flash_attention"], tally, engine
+    return tally, engine
 
 
 @contextlib.contextmanager
@@ -544,9 +617,31 @@ def moe_card_vs_cpu(cfg, n_layers: int = 2, n: int = 16) -> None:
     torch.cuda.empty_cache()
 
 
-def k1_row(fa, ref, model, shape, dtype, launches):
+def device_kernels(fn, top: int = 3) -> dict:
+    """The kernels one call of ``fn`` runs on the card, from a
+    torch.profiler trace of it: how many, and the names of the ``top``
+    longest (or why there is no trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as err:   # the trace is a label, not a check
+        return {"count": None, "longest": [f"not traced: {err}"]}
+    ran = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: -e.time_range.elapsed_us())
+    return {"count": len(ran), "longest": [e.name[:120] for e in ran[:top]]}
+
+
+def k1_row(fa, ref, model, shape, dtype, tally=None):
     """K1 timed at (B, Sq, Sk, H, Hkv, hd, causal) in ``dtype`` beside its
-    bound, its plain version and SDPA."""
+    bounds, its plain version and SDPA (with the kernels SDPA ran), and
+    its launches and device time per launch in the main run's ``tally``
+    (0 launches without one)."""
     import torch.nn.functional as F
 
     B, Sq, Sk, H, Hkv, hd, causal = shape
@@ -555,8 +650,14 @@ def k1_row(fa, ref, model, shape, dtype, launches):
            - ref.gqa_attention_ref(q, k, v, causal=causal).float()
            ).abs().max().item()
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    bound_ms, bound_by = attention_bound(*shape, dtype)
-    return {
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+
+    launches, in_path_ms = (tally or {}).get(
+        ("flash_attention", "prefill", shape[:6]), (0, 0.0, None))[:2]
+    row = {
         "name": "flash_attention",
         "model": model,
         "shape": list(shape[:6]),
@@ -564,37 +665,46 @@ def k1_row(fa, ref, model, shape, dtype, launches):
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
+        "products": ("3xTF32 mma.sync" if dtype == torch.float32
+                     else "bf16 mma.sync"),
         "launches": launches,
         "max_abs_err": err,
         "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
         "plain_ms": cuda_ms(
             lambda: ref.gqa_attention_ref(q, k, v, causal=causal)),
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True)),
+        **attention_bound(*shape, dtype),
+        "library_ms": cuda_ms(sdpa),
+        "library_kernels": device_kernels(sdpa),
     }
+    if launches:
+        row["in_path_ms"] = in_path_ms / launches
+    return row
 
 
-def timing_phase(fa, gm, ref, k1_dense, k1_moe, k2_tally, moe_cfg):
+def timing_phase(fa, gm, ref, dense_tally, moe_tally, moe_cfg):
     """The ``kernels`` line: K1 at the dense and the moe prefill's shapes
     and K2 at each of the moe path's four shapes, fp32 (the main paths'
-    dtype), each with its launches on the main path. K2's ``ms``,
+    dtype), each with its launches on the main path and its device time
+    per launch in the main run (``in_path_ms``). K2's ``ms``,
     ``plain_ms``, ``bound_ms`` and ``library_ms`` are the dense product
     (no rows), like for like with ``torch.bmm``. A K2 row also carries,
-    per launch of the main run: its device time in the run
-    (``in_path_ms``), its time alone with the run's rows
+    per launch of the main run: its time alone with the run's rows
     (``in_path_alone_ms``), the least time those rows need
-    (``in_path_bound_ms``), and the mean active experts and rows."""
+    (``in_path_bound_ms``), and the mean active experts and rows. K1 in
+    bf16 (no launch on the main path) is printed on lines of its own."""
     dense = (4, 500, 500, 14, 2, 64, True)   # qwen2-0.5b's serving prefill
-    kernels = [k1_row(fa, ref, "qwen2-0.5b", dense, torch.float32, k1_dense)]
-    bf16 = k1_row(fa, ref, "qwen2-0.5b", dense, torch.bfloat16, 0)
-    print("kernel timing, bf16 (not the main path's dtype): "
-          + json.dumps(bf16))
-    kernels.append(k1_row(fa, ref, moe_cfg.name, moe_attention(moe_cfg),
-                          torch.float32, k1_moe))
+    moe = moe_attention(moe_cfg)
+    kernels = [k1_row(fa, ref, "qwen2-0.5b", dense, torch.float32,
+                      dense_tally),
+               k1_row(fa, ref, moe_cfg.name, moe, torch.float32, moe_tally)]
+    for model, shape in (("qwen2-0.5b", dense), (moe_cfg.name, moe)):
+        print("kernel timing, bf16 (not the main path's dtype): "
+              + json.dumps(k1_row(fa, ref, model, shape, torch.bfloat16)))
 
-    for (phase, (E, C, d, f)), (n, in_path_ms, rows) in k2_tally.items():
+    for (kernel, phase, shape), (n, in_path_ms, rows) in moe_tally.items():
+        if kernel != "grouped_matmul":
+            continue
+        E, C, d, f = shape
         x, w = gmm_inputs(E, C, d, f, torch.float32, seed=98)
         err = (gm.grouped_matmul(x, w)
                - ref.grouped_matmul_ref(x, w)).abs().max().item()
@@ -657,15 +767,17 @@ def main() -> int:
 
     moe_cfg = ARCHS["qwen2-moe-a2.7b"]
     kernel_phase(fa, gm, ref, moe_cfg)
-    k1_dense, prefill_ms = engine_phase(fa, gm, ARCHS["qwen2-0.5b"])
-    k1_moe, k2_tally, moe_engine = moe_engine_phase(fa, gm, moe_cfg)
+    dense_tally, dense_engine = engine_phase(fa, gm, ARCHS["qwen2-0.5b"])
+    moe_tally, moe_engine = moe_engine_phase(fa, gm, moe_cfg)
     moe_card_vs_cpu(moe_cfg)
-    kernels = timing_phase(fa, gm, ref, k1_dense, k1_moe, k2_tally, moe_cfg)
-    k1_ms = kernels[0]["ms"] * k1_dense
-    print(f"dense prefill time in flash_attention, estimated as launches x "
-          f"time alone: {k1_dense} x {kernels[0]['ms']:.4f} ms = "
-          f"{k1_ms:.3f} ms of {prefill_ms:.2f} ms "
-          f"({100 * k1_ms / prefill_ms:.1f}%)")
+    kernels = timing_phase(fa, gm, ref, dense_tally, moe_tally, moe_cfg)
+    for row, engine in ((kernels[0], dense_engine), (kernels[1], moe_engine)):
+        ms = row["in_path_ms"] * row["launches"]
+        print(f"{row['model']} prefill time in flash_attention, measured in "
+              f"the main run: {row['launches']} x {row['in_path_ms']:.4f} ms "
+              f"= {ms:.3f} ms of {engine['prefill_ms']:.2f} ms "
+              f"({100 * ms / engine['prefill_ms']:.1f}%); time alone "
+              f"{row['ms']:.4f} ms")
     for phase, total in (("prefill", moe_engine["prefill_ms"]),
                          ("decode", moe_engine["decode_step_ms"] * 64)):
         ms = moe_engine["k2_in_path_ms"][phase]

@@ -60,6 +60,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"the kernel takes head dim {HEAD_DIMS}, got {hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel takes contiguous q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the kernel takes 16-byte aligned q, k, v (its "
+                         "copies move 16 bytes at a time)")
     lib = _build.load("flash_attention")
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):

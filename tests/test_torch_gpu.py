@@ -54,6 +54,17 @@ def _tol(dtype):
     ((2, 128, 384, 14, 2, 64), True),     # Sq != Sk, bottom-right diagonal
     ((2, 200, 200, 8, 2, 64), False),     # non-causal ragged
     ((1, 70, 300, 4, 2, 128), False),     # non-causal Sq != Sk
+    # S off every query (16 a warp, 64 a block) and key (32, 64) tile
+    ((1, 17, 17, 4, 4, 128), True),
+    ((2, 127, 127, 7, 1, 64), True),      # GQA group 7
+    ((1, 129, 129, 8, 1, 128), True),     # GQA group 8
+    ((4, 500, 500, 14, 2, 64), True),     # qwen2-0.5b prefill
+    ((1, 1, 129, 4, 4, 128), False),
+    ((2, 129, 127, 8, 8, 64), False),
+    # Sq < Sk, causal, Sq off the tiles
+    ((1, 17, 129, 8, 8, 64), True),
+    ((2, 127, 500, 7, 1, 128), True),
+    ((1, 1, 500, 8, 1, 64), True),
 ])
 def test_kernel_matches_plain(hopper, shape, causal, dtype):
     q, k, v = _inputs(shape, dtype)
@@ -63,6 +74,35 @@ def test_kernel_matches_plain(hopper, shape, causal, dtype):
     assert out.dtype == dtype and out.shape == q.shape
     tol = _tol(dtype)
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((4, 500, 500, 16, 16, 128), True),   # qwen2-moe-a2.7b prefill
+    ((4, 500, 500, 14, 2, 64), True),     # qwen2-0.5b prefill
+    ((1, 200, 200, 2, 2, 128), True),     # the CPU emulation's cut
+    ((1, 129, 500, 8, 1, 128), True),
+    ((1, 70, 300, 4, 2, 128), False),
+])
+def test_kernel_matches_plain_peaked(hopper, shape, causal):
+    """fp32 with q scaled by 8 (logits x8, a peaked softmax): plain TF32
+    is 1e-2 off here, so the small parts of 3xTF32 decide the result. (In
+    bf16 the plain version rounds the scores themselves to bf16, 1 in a
+    logit of 300, so no kernel that keeps them in fp32 can match it.)"""
+    q, k, v = _inputs(shape, torch.float32)
+    q = q * 8
+    out = fa.flash_attention(q, k, v, causal=causal)
+    want = gqa_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_deterministic(hopper, dtype):
+    """The same inputs give the same bits (no atomics, fixed order)."""
+    q, k, v = _inputs((4, 500, 500, 16, 16, 128), dtype)
+    a = fa.flash_attention(q, k, v)
+    b = fa.flash_attention(q, k, v)
+    assert torch.equal(a, b)
 
 
 def test_kernel_counts_launches(hopper):
@@ -94,6 +134,9 @@ def test_kernel_rejects_what_it_cannot_run(hopper):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(shifted, k, v)
     with pytest.raises(ValueError, match="Sq <= Sk"):
         fa.flash_attention(q, k[:, :32].contiguous(), v[:, :32].contiguous())
     with pytest.raises(ValueError, match="one CUDA device"):

@@ -4,7 +4,9 @@ package's, on the CPU.
 On CPU tensors ``repro_torch.kernels.ops.flash_attention`` runs the
 kernel's plain version; it is held against the reference's Pallas
 kernel (interpret mode) and its oracle on the same numpy inputs. The
-CUDA kernel itself is tested on the card in ``test_torch_gpu.py``.
+CUDA kernel itself is tested on the card in ``test_torch_gpu.py``; its
+fp32 arithmetic (3xTF32 on the tensor cores) is emulated here in plain
+torch and held to the oracle too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -161,3 +163,59 @@ def test_build_command_targets_hopper(monkeypatch, tmp_path):
     (tmp_path / "bin").mkdir()
     (tmp_path / "bin" / "nvcc").touch()
     assert _build.nvcc_path() == str(tmp_path / "bin" / "nvcc")
+
+
+def _tf32(x):
+    """x rounded to tf32: a 10-bit mantissa, to nearest, ties away from
+    zero (on the bits: add half an ulp, clear the low 13 bits)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_3xtf32(a, b):
+    """a @ b as the CUDA kernel computes it in fp32: each operand split
+    into big = tf32(x) and small = x - big, which the tensor cores
+    truncate to tf32; small*big + big*small + big*big summed in fp32 over
+    16-deep chunks, each chunk then added to the fp32 accumulator."""
+    def split(x):
+        big = _tf32(x)
+        small = (x - big).view(torch.int32) & ~0x1FFF
+        return big, small.view(torch.float32)
+
+    (ab, as_), (bb, bs) = split(a), split(b)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 16):
+        c = slice(k0, k0 + 16)
+        out = out + (as_[..., c] @ bb[..., c, :] + ab[..., c] @ bs[..., c, :]
+                     + ab[..., c] @ bb[..., c, :])
+    return out
+
+
+def _attention_emulated(q, k, v, matmul):
+    """Causal attention with both products through ``matmul``, the
+    softmax in fp32 as the plain version takes it."""
+    sq, sk, hd = q.shape[1], k.shape[1], q.shape[2]
+    scores = matmul(q, k.transpose(1, 2)) / hd ** 0.5
+    mask = torch.ones(sq, sk, dtype=torch.bool).tril(sk - sq)
+    w = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    return matmul(w, v)
+
+
+@pytest.mark.parametrize("q_scale", [1, 8])
+def test_3xtf32_scheme_meets_fp32_tolerance(q_scale):
+    """The kernel's fp32 route (3xTF32 on the tensor cores), emulated in
+    plain torch at a cut of the qwen2-moe-a2.7b prefill (B=1, S=200,
+    H=2, hd=128), holds 2e-5 against the reference package's oracle; with
+    q scaled by 8 (logits x8, a peaked softmax) as well. Plain TF32, the
+    big parts alone, misses by more than ten times the tolerance."""
+    rng = np.random.default_rng(14)
+    q, k, v = (rng.standard_normal((2, 200, 128)).astype(np.float32)
+               for _ in range(3))
+    q *= q_scale
+    want = _np(jref.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=True))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = _attention_emulated(tq, tk, tv, _matmul_3xtf32)
+    np.testing.assert_allclose(_np(got), want, rtol=2e-5, atol=2e-5)
+    tf32_only = _attention_emulated(tq, tk, tv,
+                                    lambda a, b: _tf32(a) @ _tf32(b))
+    assert np.abs(_np(tf32_only) - want).max() > 10 * 2e-5
