@@ -9,17 +9,18 @@ Run from the repository root, with nothing else on the command line:
    CUDA kernel of the port from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once).
 2. Kernels: holds each kernel against its plain PyTorch version on the
-   card: flash attention (K1) at both serving paths' prefill shapes and
-   at ragged, wide-head, Sq != Sk, non-causal, off-tile and GQA-group
-   cases, in fp32 and bf16, and in fp32 with q scaled by 8 (a peaked
-   softmax) at both prefill shapes; the grouped GEMM (K2) at the moe
-   path's shapes, the reference's sweep and (1,1,1,1), densely and with
+   card: flash attention (K1) at every serving path's prefill shape
+   (head dims 64, 112 and 128) and at ragged, wide-head, Sq != Sk,
+   non-causal, off-tile and GQA-group cases, in fp32 and bf16, and in
+   fp32 with q scaled by 8 (a peaked softmax) at the qwen2, moe and
+   Zamba2 prefill shapes; the grouped GEMM (K2) at the moe path's
+   shapes, the reference's sweep and (1,1,1,1), densely and with
    ``rows`` (occupied rows per expert) as the moe path passes them.
-3. Dense engine: serves full-width qwen2-0.5b (random weights from a
-   seed) through ``ServeEngine.generate``, checks that every layer's
-   prefill attention went through K1 (each launch's device time read
-   from CUDA events around it), and holds the card against the port's
-   CPU path on the same weights.
+3. Dense engine: serves full-width qwen2-0.5b (random weights drawn on
+   the card from a seed) through ``ServeEngine.generate``, checks that
+   every layer's prefill attention went through K1 (each launch's device
+   time read from CUDA events around it), and holds the card against the
+   port's CPU path at full depth on weights drawn on the CPU.
 4. Moe engine: serves full-width, 24-layer qwen2-moe-a2.7b in fp32
    (14.3 B parameters, 57 GB, drawn on the card from a CUDA generator)
    through ``ServeEngine.generate``, checks that every prefill
@@ -27,7 +28,19 @@ Run from the repository root, with nothing else on the command line:
    by kernel, phase and shape, each launch's device time read from CUDA
    events around it, K2's ``rows`` read after the run), then holds the
    card against the CPU path at full width and 2 layers.
-5. Timing: times each kernel at each of its main-path shapes, its plain
+5. Zamba2 engine, this slice's main run: serves zamba2-7b at its full
+   width and depth in fp32 (81 Mamba2 layers and 13 applications of the
+   shared attention block, 6.75 B parameters, 27 GB, drawn on the card)
+   through ``ServeEngine.generate``, checks 13 K1 launches per prefill
+   at hd 112 and none in decode, then holds the card against the CPU
+   path at full width and 12 layers (two shared-block applications) on
+   a 300-token prompt (two SSD chunks).
+6. The other families at full width, each through
+   ``ServeEngine.generate`` (4 x 500 tokens, 16 new): internvl2-1b (256
+   zero patch embeddings before the text; K1 at S = 756), musicgen-large
+   (four codebook streams) and xlstm-350m (no attention, so no K1); each
+   also held against the CPU path at 2 layers.
+7. Timing: times each kernel at each of its main-path shapes, its plain
    version and the PyTorch library call that computes the same
    function (with the kernels that call ran, from torch.profiler),
    beside the least time the card could take for the same work, and
@@ -193,27 +206,58 @@ def moe_rows(cfg, B, S):
     return G * capacity(cfg, B * S // G)
 
 
-def moe_attention(cfg, B=4, S=500):
-    """K1's (B, Sq, Sk, H, Hkv, hd, causal) in the moe prefill of B x S."""
+def tensors(tree) -> list:
+    """The tensors of a cache or state: a tensor, or a tuple or dict of
+    them, nested."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in (tree.values() if isinstance(tree, dict) else tree)
+            for t in tensors(v)]
+
+
+def prefill_attention(cfg, B=4, S=500):
+    """K1's (B, Sq, Sk, H, Hkv, hd, causal) in a prefill of B x S text
+    tokens (a vlm's patch embeddings come first)."""
+    S += cfg.n_patches if cfg.family == "vlm" else 0
     return (B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, True)
+
+
+def attention_layers(cfg) -> int:
+    """Full-sequence attentions per forward: one a layer, Zamba2's shared
+    block once per application, none in xLSTM."""
+    from repro_torch.models.stacks import n_attn_applications
+
+    return {"hybrid": n_attn_applications(cfg), "ssm": 0}.get(
+        cfg.family, cfg.n_layers)
 
 
 def engine_bounds(cfg, B, S, max_seq):
     """Least fp32 times for the full-width engine run: the prefill's
     multiply-adds at the fp32 peak, and one decode step's bytes at HBM
-    rate: every weight and the whole KV cache read once, but of an
-    untied embedding table only the B rows the step gathers (a tied
-    table is read whole by the unembed).
+    rate: every weight and the whole KV cache or recurrent state read
+    once, but of an untied embedding table only the rows the step
+    gathers (a tied table is read whole by the unembed).
 
-    The prefill counts every weight but the embedding once per token,
-    the unembed, and causal attention. For the moe family the routed
-    experts count as the path computes them, over all G*C capacity
-    slots, empty or not; ``prefill_active_bound_ms`` counts them at
-    top-k per token instead."""
+    The prefill counts every weight but the embedding once per position
+    (Zamba2's shared block once per application; a vlm's patches are
+    positions), the unembed, and causal attention; not the SSD's
+    quadratic chunk sums. For the moe family the routed experts count as
+    the path computes them, over all G*C capacity slots, empty or not;
+    ``prefill_active_bound_ms`` counts them at top-k per token instead."""
+    from repro_torch import build_model
+
     V, d, L = cfg.vocab_padded, cfg.d_model, cfg.n_layers
-    body = cfg.param_count() - V * d * (1 if cfg.tie_embeddings else 2)
-    attn = 4 * B * cfg.n_heads * cfg.d_head * S * (S + 1) // 2 * L
-    cache = 2 * L * B * max_seq * cfg.d_kv
+    K = cfg.n_codebooks if cfg.family == "audio" else 1
+    body = cfg.param_count() - K * V * d * (1 if cfg.tie_embeddings else 2)
+    if cfg.family == "hybrid":   # the shared block runs once per application
+        shared = cfg.param_count() - cfg.replace(
+            hybrid_attn_every=0).param_count()
+        body += (attention_layers(cfg) - 1) * shared
+    T = prefill_attention(cfg, B, S)[1]
+    attn = (4 * B * cfg.n_heads * cfg.d_head * T * (T + 1) // 2
+            * attention_layers(cfg))
+    cache = sum(x.numel() for x in tensors(
+        build_model(cfg).init_cache(B, max_seq, device="meta")))
     out = {}
     if cfg.family == "moe":
         expert = 3 * d * cfg.d_expert
@@ -224,23 +268,29 @@ def engine_bounds(cfg, B, S, max_seq):
                                    + d * V) + attn)
         out["prefill_active_bound_ms"] = active_ops / H100_FP32_FLOPS * 1e3
     else:
-        prefill_ops = 2 * B * S * (body + d * V) + attn
+        prefill_ops = 2 * B * T * (body + K * d * V) + attn
     out["prefill_bound_ms"] = prefill_ops / H100_FP32_FLOPS * 1e3
-    weights = cfg.param_count() - (0 if cfg.tie_embeddings else (V - B) * d)
+    weights = cfg.param_count() - (0 if cfg.tie_embeddings
+                                   else K * (V - B) * d)
     out["decode_step_bound_ms"] = (4 * (weights + cache)
                                    / H100_BYTES_PER_S * 1e3)
     return out
 
 
-def kernel_phase(fa, gm, ref, moe_cfg) -> None:
+def kernel_phase(fa, gm, ref, cfgs) -> None:
+    """K1 and K2 against their plain versions; ``cfgs`` maps each served
+    config's name to it (their prefill shapes are K1's cases)."""
+    moe_cfg, zamba_cfg = cfgs["qwen2-moe-a2.7b"], cfgs["zamba2-7b"]
     # (B, Sq, Sk, H, Hkv, hd, causal): serving shape, ragged, the moe
     # prefill's shape, wide head, Sq != Sk (bottom-right diagonal),
     # non-causal ragged; then S off every query and key tile, Sq < Sk
-    # off the tiles, GQA groups 1, 7 and 8
+    # off the tiles, GQA groups 1, 7 and 8; then Zamba2's prefill (hd
+    # 112) and hd 112 off the tiles, Sq < Sk and non-causal; then the
+    # internvl2-1b and musicgen-large prefills
     cases = [
         (4, 512, 512, 14, 2, 64, True),
         (4, 500, 500, 14, 2, 64, True),
-        moe_attention(moe_cfg),
+        prefill_attention(moe_cfg),
         (2, 384, 384, 8, 2, 128, True),
         (2, 128, 384, 14, 2, 64, True),
         (2, 200, 200, 8, 2, 64, False),
@@ -250,30 +300,43 @@ def kernel_phase(fa, gm, ref, moe_cfg) -> None:
         (2, 129, 127, 8, 8, 64, False),
         (2, 127, 500, 7, 1, 128, True),
         (1, 1, 500, 8, 1, 64, True),
+        prefill_attention(zamba_cfg),
+        (1, 17, 17, 4, 4, 112, True),
+        (2, 127, 500, 7, 1, 112, True),
+        (2, 129, 127, 8, 8, 112, False),
+        prefill_attention(cfgs["internvl2-1b"]),
+        prefill_attention(cfgs["musicgen-large"]),
     ]
     checks = [(c, dtype, tol, 1) for c in cases for dtype, tol in
               ((torch.float32, 2e-5), (torch.bfloat16, 2e-2))]
-    # q scaled by 8 (logits x8, a peaked softmax), fp32 at both prefill
-    # shapes: plain TF32 is 1e-2 off here, so the small parts of 3xTF32
-    # decide. (In bf16 the plain version rounds the scores to bf16.)
-    checks += [(c, torch.float32, 2e-5, 8) for c in cases[1:3]]
+    # q scaled by 8 (logits x8, a peaked softmax), fp32 at the dense, moe
+    # and Zamba2 prefill shapes: plain TF32 is 1e-2 off here, so the
+    # small parts of 3xTF32 decide. The plain version in fp32 is itself
+    # up to 2.6e-5 off the exact result here (its q k^T is an fp32 sum of
+    # logits x8), so K1 is held to the plain version computed in float64
+    # on the same inputs; its distance to the fp32 plain version is
+    # printed beside. (In bf16 the plain version rounds the scores to
+    # bf16.)
+    checks += [(c, torch.float32, 2e-5, 8) for c in
+               (cases[1], cases[2], prefill_attention(zamba_cfg))]
     for i, ((B, Sq, Sk, H, Hkv, hd, causal), dtype, tol, scale) in \
             enumerate(checks):
         q, k, v = attention_inputs(B, Sq, Sk, H, Hkv, hd, dtype, seed=i)
         q = q * scale
-        out = fa.flash_attention(q, k, v, causal=causal)
-        want = ref.gqa_attention_ref(q, k, v, causal=causal)
+        out = fa.flash_attention(q, k, v, causal=causal).float()
+        want = ref.gqa_attention_ref(q, k, v, causal=causal).float()
+        note = ""
+        if scale != 1:
+            fp32 = want
+            want = ref.gqa_attention_ref(q.double(), k.double(), v.double(),
+                                         causal=causal).float()
+            note = (f" q x{scale}, held to the plain version in float64; "
+                    f"to the fp32 plain version "
+                    f"{(out - fp32).abs().max().item():.3e}, which is "
+                    f"{(fp32 - want).abs().max().item():.3e} from float64")
         torch.cuda.synchronize()
-        out, want = out.float(), want.float()
         err = (out - want).abs().max().item()
         ok = torch.allclose(out, want, rtol=tol, atol=tol)
-        note = ""
-        if scale != 1:   # the plain fp32 version is off the exact result too
-            exact = ref.gqa_attention_ref(q.double(), k.double(), v.double(),
-                                          causal=causal).float()
-            note = (f" q x{scale}; against float64: kernel "
-                    f"{(out - exact).abs().max().item():.3e}, plain "
-                    f"{(want - exact).abs().max().item():.3e}")
         print(f"kernel flash_attention B={B} Sq={Sq} Sk={Sk} H={H} "
               f"Hkv={Hkv} hd={hd} causal={causal} {dtype}: "
               f"max|d|={err:.3e} tol={tol:g}{note} {'ok' if ok else 'FAIL'}")
@@ -338,21 +401,31 @@ def kernel_phase(fa, gm, ref, moe_cfg) -> None:
 @torch.inference_mode()
 def greedy_trace(model, params, prompt: np.ndarray, n: int, device: str):
     """Last-position prefill logits, greedy tokens and each step's top-2
-    logit margin, through the model API."""
-    S = prompt.shape[1]
+    logit margin (the least over an audio step's codebooks), through the
+    model API, as ``ServeEngine`` drives it (a vlm with zero patch
+    embeddings, decoding after them)."""
+    cfg = model.cfg
     toks = torch.as_tensor(prompt, dtype=torch.long, device=device)
-    cache = model.init_cache(1, S + n, device=device)
-    logits, cache = model.prefill(params, {"tokens": toks}, cache)
+    S = toks.shape[-1]
+    n_prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    batch = {"tokens": toks}
+    if n_prefix:
+        batch["patch_embeds"] = torch.zeros((1, n_prefix, cfg.d_model),
+                                            device=device)
+    cache = model.init_cache(1, n_prefix + S + n, device=device)
+    logits, cache = model.prefill(params, batch, cache)
     first = logits[0, -1].float().cpu()
     last = logits[:, -1:]
     out, margins = [], []
     for i in range(n):
-        top2 = last[0, 0].float().topk(2).values
-        margins.append(float(top2[0] - top2[1]))
-        nxt = last.argmax(dim=-1)
-        out.append(int(nxt))
-        last, cache = model.decode_step(params, cache,
-                                        {"tokens": nxt, "cache_index": S + i})
+        top2 = last[0, 0].float().topk(2, dim=-1).values
+        margins.append(float((top2[..., 0] - top2[..., 1]).min()))
+        nxt = last.argmax(dim=-1)               # (1, 1) | (1, 1, K)
+        if cfg.family == "audio":
+            nxt = nxt.movedim(-1, 1)            # (1, K, 1)
+        out.append(nxt.flatten().tolist())
+        last, cache = model.decode_step(
+            params, cache, {"tokens": nxt, "cache_index": n_prefix + S + i})
     return first, out, margins
 
 
@@ -372,30 +445,32 @@ def compare_card_cpu(g_trace, c_trace, n: int) -> None:
     check(matched >= close, "greedy tokens diverge before a near-tie")
 
 
-def serve(eng, cfg, counters, watch=contextlib.nullcontext()):
-    """The main path: warm up, then 4 prompts x 500 tokens and 64 greedy
-    tokens through ``ServeEngine.generate`` inside ``watch``, every
-    kernel's launch count set to 0 just before and read just after.
-    Returns the prompts, the counts by kernel and the engine's numbers."""
+def serve(eng, cfg, counters, watch=contextlib.nullcontext(), n_new=64):
+    """The main path: warm up, then 4 prompts x 500 tokens (an audio
+    model's 4 x K x 500) and ``n_new`` greedy tokens through
+    ``ServeEngine.generate`` inside ``watch``, every kernel's launch count
+    set to 0 just before and read just after. Returns the prompts, the
+    counts by kernel and the engine's numbers."""
     rng = np.random.default_rng(0)
-    eng.generate(rng.integers(0, cfg.vocab_size, (1, 16)), n_new=2)  # warm-up
-    prompts = rng.integers(0, cfg.vocab_size, (4, 500))
+    K = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    eng.generate(rng.integers(0, cfg.vocab_size, (1, *K, 16)), n_new=2)
+    prompts = rng.integers(0, cfg.vocab_size, (4, *K, 500))
     torch.cuda.reset_peak_memory_stats()
     for mod in counters:
         mod.launches = 0
     with watch:
-        res = eng.generate(prompts, n_new=64)
+        res = eng.generate(prompts, n_new=n_new)
     launches = {mod.__name__.rsplit(".", 1)[-1]: mod.launches
                 for mod in counters}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"{cfg.name} main path kernel launches: {json.dumps(launches)} "
           f"(n_layers={cfg.n_layers})")
-    check(res.tokens.shape == (4, 64) and res.tokens.min() >= 0
+    check(res.tokens.shape == (4, *K, n_new) and res.tokens.min() >= 0
           and res.tokens.max() < cfg.vocab_size, "generated tokens malformed")
-    engine = {"batch": 4, "prompt": 500, "n_new": 64,
+    engine = {"model": cfg.name, "batch": 4, "prompt": 500, "n_new": n_new,
               "prefill_ms": res.prefill_s * 1e3,
               "decode_tokens_per_s": res.tokens_per_s,
-              "decode_step_ms": res.decode_s / 64 * 1e3,
+              "decode_step_ms": res.decode_s / n_new * 1e3,
               "peak_device_gb": peak_gb,
               **engine_bounds(cfg, 4, 500, 1024)}
     return prompts, launches, engine
@@ -459,52 +534,20 @@ def in_path(fa, gm, model, tally: dict):
 
 
 def check_k1_in_path(cfg, tally: dict) -> None:
-    """One K1 launch per layer, all in the prefill, at its serving shape."""
-    want = {("flash_attention", "prefill", (4, 500, 500, cfg.n_heads,
-                                            cfg.n_kv_heads, cfg.d_head)):
-            cfg.n_layers}
+    """One K1 launch per full-sequence attention (``attention_layers``),
+    all in the prefill, at its serving shape; none without attention."""
+    n = attention_layers(cfg)
+    want = {("flash_attention", "prefill", prefill_attention(cfg)[:6]): n
+            } if n else {}
     got = {k: n for k, (n, _, _) in tally.items() if k[0] == "flash_attention"}
     check(got == want, f"{cfg.name} K1 launches by phase and shape {got}, "
           f"want {want}")
 
 
-def engine_phase(fa, gm, cfg):
-    """Full-width dense serving on the card. Returns K1's launches and
-    in-path device time by phase and shape, and the engine's numbers,
-    all from the main path's run."""
-    from repro_torch import ServeEngine, build_model
-
-    t0 = time.perf_counter()
-    eng = ServeEngine(cfg, max_seq=1024, seed=0, device="cuda")
-    n_params = sum(p.numel() for p in eng.params.parameters())
-    print(f"engine init (full width, {n_params} params, fp32): "
-          f"{time.perf_counter() - t0:.1f} s")
-    tally: dict = {}
-    prompts, launches, engine = serve(eng, cfg, (fa, gm),
-                                      in_path(fa, gm, eng.model, tally))
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"prefill made {launches['flash_attention']} flash_attention "
-          f"launches, want {cfg.n_layers}")
-    check(launches["grouped_matmul"] == 0, "the dense path ran K2")
-    check_k1_in_path(cfg, tally)
-    print("engine: " + json.dumps(engine))
-
-    # the card against the port's CPU path, same seed -> same weights
-    model = build_model(cfg)
-    cpu_params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    prompt = prompts[:1, :256]
-    n = 16
-    compare_card_cpu(greedy_trace(model, eng.params, prompt, n, "cuda"),
-                     greedy_trace(model, cpu_params, prompt, n, "cpu"), n)
-    return tally, engine
-
-
-def moe_engine_phase(fa, gm, cfg):
-    """Full-width, full-depth moe serving on the card, weights drawn on
-    the card. Returns K1's and K2's launches and in-path device time by
-    phase and shape, and the engine's numbers, all from the main path's
-    run."""
-    from repro_torch import ServeEngine, build_model
+def draw_on_card(cfg):
+    """Random fp32 weights drawn on the card from a CUDA generator seeded
+    0 (the host draws billions of parameters too slowly)."""
+    from repro_torch import build_model
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -512,11 +555,22 @@ def moe_engine_phase(fa, gm, cfg):
     params = build_model(cfg).init(
         torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
-    eng = ServeEngine(cfg, params=params, max_seq=1024, device="cuda")
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"moe engine init (full width, {cfg.n_layers} layers, {n_params} "
+    print(f"{cfg.name} init (full width, {cfg.n_layers} layers, {n_params} "
           f"params, fp32, drawn on the card): "
           f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def moe_engine_phase(fa, gm, cfg):
+    """Full-width, full-depth moe serving on the card, weights drawn on
+    the card. Returns K1's and K2's launches and in-path device time by
+    phase and shape, and the engine's numbers, all from the main path's
+    run."""
+    from repro_torch import ServeEngine
+
+    eng = ServeEngine(cfg, params=draw_on_card(cfg), max_seq=1024,
+                      device="cuda")
     tally: dict = {}
     _, launches, engine = serve(eng, cfg, (fa, gm),
                                 in_path(fa, gm, eng.model, tally))
@@ -556,10 +610,63 @@ def moe_engine_phase(fa, gm, cfg):
             check(int(active.max()) <= 16,
                   "a decode K2 launch had more than 16 active experts")
     print("moe engine: " + json.dumps(engine))
-    del eng, params
+    del eng
     gc.collect()
     torch.cuda.empty_cache()
     return tally, engine
+
+
+def family_engine_phase(fa, gm, cfg, n_new: int):
+    """Full-width, full-depth serving of a model without experts on the
+    card, weights drawn on the card: one K1 launch per full-sequence
+    attention of the prefill (one a layer, 13 for Zamba2's shared block,
+    none for xLSTM), none in decode, no K2. Returns K1's launches and
+    in-path device time by phase and shape, and the engine's numbers, all
+    from the main path's run."""
+    from repro_torch import ServeEngine
+
+    eng = ServeEngine(cfg, params=draw_on_card(cfg), max_seq=1024,
+                      device="cuda")
+    tally: dict = {}
+    _, launches, engine = serve(eng, cfg, (fa, gm),
+                                in_path(fa, gm, eng.model, tally), n_new)
+    n = attention_layers(cfg)
+    check(launches["flash_attention"] == n,
+          f"{cfg.name} prefill made {launches['flash_attention']} "
+          f"flash_attention launches, want {n}")
+    check(launches["grouped_matmul"] == 0, f"the {cfg.name} path ran K2")
+    check_k1_in_path(cfg, tally)
+    engine["k1_in_path_ms"] = sum(ms for (name, _, _), (_, ms, _)
+                                  in tally.items() if name == "flash_attention")
+    print(f"{cfg.name} engine: " + json.dumps(engine))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tally, engine
+
+
+def card_vs_cpu(cfg, cut: dict, S: int, n: int = 16) -> None:
+    """The path on the card against the port's CPU path at full width,
+    cut to ``cut`` (fewer layers, or nothing), on one set of weights drawn
+    from a CPU generator and copied: a 1 x S prompt (an audio model's
+    1 x K x S) and ``n`` greedy tokens."""
+    from repro_torch import build_model
+
+    cfg = cfg.replace(**cut)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    cpu_params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    gpu_params = type(cpu_params)(cfg, device="cuda")
+    gpu_params.load_state_dict(cpu_params.state_dict())
+    n_params = sum(p.numel() for p in cpu_params.parameters())
+    print(f"{cfg.name} card vs CPU: {cfg.n_layers} layers, {n_params} params "
+          f"drawn on the CPU and copied: {time.perf_counter() - t0:.1f} s")
+    K = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, *K, S))
+    compare_card_cpu(greedy_trace(model, gpu_params, prompt, n, "cuda"),
+                     greedy_trace(model, cpu_params, prompt, n, "cpu"), n)
+    del gpu_params
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -681,25 +788,29 @@ def k1_row(fa, ref, model, shape, dtype, tally=None):
     return row
 
 
-def timing_phase(fa, gm, ref, dense_tally, moe_tally, moe_cfg):
-    """The ``kernels`` line: K1 at the dense and the moe prefill's shapes
-    and K2 at each of the moe path's four shapes, fp32 (the main paths'
-    dtype), each with its launches on the main path and its device time
-    per launch in the main run (``in_path_ms``). K2's ``ms``,
-    ``plain_ms``, ``bound_ms`` and ``library_ms`` are the dense product
-    (no rows), like for like with ``torch.bmm``. A K2 row also carries,
-    per launch of the main run: its time alone with the run's rows
-    (``in_path_alone_ms``), the least time those rows need
-    (``in_path_bound_ms``), and the mean active experts and rows. K1 in
-    bf16 (no launch on the main path) is printed on lines of its own."""
-    dense = (4, 500, 500, 14, 2, 64, True)   # qwen2-0.5b's serving prefill
-    moe = moe_attention(moe_cfg)
-    kernels = [k1_row(fa, ref, "qwen2-0.5b", dense, torch.float32,
-                      dense_tally),
-               k1_row(fa, ref, moe_cfg.name, moe, torch.float32, moe_tally)]
-    for model, shape in (("qwen2-0.5b", dense), (moe_cfg.name, moe)):
+def timing_phase(fa, gm, ref, tallies, cfgs):
+    """The ``kernels`` line: K1 at the prefill shape of every served model
+    that has attention (qwen2-0.5b, qwen2-moe-a2.7b, zamba2-7b,
+    internvl2-1b, musicgen-large) and K2 at each of the moe path's four
+    shapes, fp32 (the main paths' dtype), each with its launches on its
+    model's main path and its device time per launch in that run
+    (``in_path_ms``). K2's ``ms``, ``plain_ms``, ``bound_ms`` and
+    ``library_ms`` are the dense product (no rows), like for like with
+    ``torch.bmm``. A K2 row also carries, per launch of the main run: its
+    time alone with the run's rows (``in_path_alone_ms``), the least time
+    those rows need (``in_path_bound_ms``), and the mean active experts
+    and rows. K1 in bf16 (no launch on the main path) is printed on
+    lines of its own."""
+    moe_cfg = cfgs["qwen2-moe-a2.7b"]
+    moe_tally = tallies[moe_cfg.name]
+    kernels = [k1_row(fa, ref, name, prefill_attention(cfgs[name]),
+                      torch.float32, tallies[name])
+               for name in ("qwen2-0.5b", moe_cfg.name, "zamba2-7b",
+                            "internvl2-1b", "musicgen-large")]
+    for name in ("qwen2-0.5b", moe_cfg.name, "zamba2-7b"):
         print("kernel timing, bf16 (not the main path's dtype): "
-              + json.dumps(k1_row(fa, ref, model, shape, torch.bfloat16)))
+              + json.dumps(k1_row(fa, ref, name, prefill_attention(cfgs[name]),
+                                  torch.bfloat16)))
 
     for (kernel, phase, shape), (n, in_path_ms, rows) in moe_tally.items():
         if kernel != "grouped_matmul":
@@ -757,27 +868,67 @@ def main() -> int:
     print(name)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
+
+    def phase_done(what: str) -> None:
+        nonlocal t0
+        now = time.perf_counter()
+        print(f"phase {what}: {now - t0:.1f} s (total {now - t_start:.1f} s)")
+        t0 = now
+
     _build.build()
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    phase_done("build")
     for lib, log in _build.logs.items():   # -Xptxas -v: registers, spills
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas {lib}: {line.split('ptxas info    : ')[-1]}")
 
-    moe_cfg = ARCHS["qwen2-moe-a2.7b"]
-    kernel_phase(fa, gm, ref, moe_cfg)
-    dense_tally, dense_engine = engine_phase(fa, gm, ARCHS["qwen2-0.5b"])
-    moe_tally, moe_engine = moe_engine_phase(fa, gm, moe_cfg)
+    cfgs = {k: ARCHS[k] for k in ("qwen2-0.5b", "qwen2-moe-a2.7b",
+                                  "zamba2-7b", "internvl2-1b",
+                                  "musicgen-large", "xlstm-350m")}
+    moe_cfg, zamba_cfg = cfgs["qwen2-moe-a2.7b"], cfgs["zamba2-7b"]
+    kernel_phase(fa, gm, ref, cfgs)
+    phase_done("kernels against their plain versions")
+    tallies, engines = {}, {}
+    dense_cfg = cfgs["qwen2-0.5b"]
+    tallies[dense_cfg.name], engines[dense_cfg.name] = family_engine_phase(
+        fa, gm, dense_cfg, n_new=64)
+    card_vs_cpu(dense_cfg, {}, S=256)
+    phase_done("dense engine and card vs CPU")
+    tallies[moe_cfg.name], engines[moe_cfg.name] = moe_engine_phase(
+        fa, gm, moe_cfg)
+    phase_done("moe engine")
     moe_card_vs_cpu(moe_cfg)
-    kernels = timing_phase(fa, gm, ref, dense_tally, moe_tally, moe_cfg)
-    for row, engine in ((kernels[0], dense_engine), (kernels[1], moe_engine)):
+    phase_done("moe card vs CPU")
+    # this slice's main run: zamba2-7b at full width and depth
+    tallies[zamba_cfg.name], engines[zamba_cfg.name] = family_engine_phase(
+        fa, gm, zamba_cfg, n_new=64)
+    phase_done("zamba2 engine")
+    card_vs_cpu(zamba_cfg, dict(n_layers=12), S=300)
+    phase_done("zamba2 card vs CPU")
+    # the other families, 16 new tokens each; the card-vs-CPU cuts keep
+    # 2 layers (for xLSTM one mLSTM and one sLSTM block)
+    for arch, cut in (("internvl2-1b", dict(n_layers=2)),
+                      ("musicgen-large", dict(n_layers=2)),
+                      ("xlstm-350m", dict(n_layers=2,
+                                          xlstm_pattern=("m", "s")))):
+        tallies[arch], engines[arch] = family_engine_phase(
+            fa, gm, cfgs[arch], n_new=16)
+        card_vs_cpu(cfgs[arch], cut, S=256)
+        phase_done(f"{arch} engine and card vs CPU")
+    kernels = timing_phase(fa, gm, ref, tallies, cfgs)
+    phase_done("timing")
+    for row in kernels:
+        if row["name"] != "flash_attention":
+            continue
+        engine = engines[row["model"]]
         ms = row["in_path_ms"] * row["launches"]
         print(f"{row['model']} prefill time in flash_attention, measured in "
               f"the main run: {row['launches']} x {row['in_path_ms']:.4f} ms "
               f"= {ms:.3f} ms of {engine['prefill_ms']:.2f} ms "
               f"({100 * ms / engine['prefill_ms']:.1f}%); time alone "
               f"{row['ms']:.4f} ms")
+    moe_engine = engines[moe_cfg.name]
     for phase, total in (("prefill", moe_engine["prefill_ms"]),
                          ("decode", moe_engine["decode_step_ms"] * 64)):
         ms = moe_engine["k2_in_path_ms"][phase]

@@ -2,9 +2,10 @@
 
 The package mirrors ``repro``'s module names (``configs``, ``kernels``,
 ``models``, ``serve``) and imports neither ``jax`` nor ``repro``: it
-keeps its own copy of what it needs. It serves the dense and moe
-families end to end. Two hand-written CUDA kernels, built with ``nvcc``
-at first use, carry the hot spots: flash attention in prefill
+keeps its own copy of what it needs. It serves every family of the
+reference's zoo end to end (dense, moe, vlm, audio, the xLSTM ssm stack
+and the Zamba2 hybrid). Two hand-written CUDA kernels, built with
+``nvcc`` at first use, carry the hot spots: flash attention in prefill
 (``kernels/csrc/flash_attention.cu``) and the MoE experts' grouped GEMMs
 (``kernels/csrc/grouped_matmul.cu``).
 

@@ -1,0 +1,33 @@
+"""Qwen3-14B  [hf:Qwen/Qwen3-8B family; hf]
+
+40L d_model=5120 40H (GQA kv=8) d_ff=17408 vocab=151936 — qk_norm, GQA,
+d_head=128 (so d_q = 5120), no QKV bias (Qwen3 dropped it).
+"""
+from repro_torch.configs.base import ModelConfig
+
+ARCH = ModelConfig(
+    name="qwen3-14b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=17408,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+)
+
+SMOKE = ModelConfig(
+    name="qwen3-14b-smoke",
+    family="dense",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    d_head=16,
+    d_ff=128,
+    vocab_size=512,
+    qk_norm=True,
+)

@@ -79,12 +79,21 @@ constexpr int STAGES = 2;           // K/V tiles in the cp.async ring
 constexpr int MIN_BLOCKS = 2;       // blocks per SM the registers allow
 constexpr int F32_CHUNK = 2;        // see Warp<float, HD>
 // Keys per tile, by input type and head dim: at fp32 hd 128, Q and two
-// stages of 64 keys would take 172 KB, one block per SM.
+// stages of 64 keys would take 172 KB, one block per SM; at fp32 hd 112,
+// 148 KB.
 constexpr int F32_BK_HD64 = 64;
+constexpr int F32_BK_HD112 = 32;
 constexpr int F32_BK_HD128 = 32;
 constexpr int BF16_BK_HD64 = 64;
+constexpr int BF16_BK_HD112 = 64;
 constexpr int BF16_BK_HD128 = 64;
 constexpr float NEG_INF = -1e30f;
+
+// The deepest chunk of at most F32_CHUNK 8-deep steps that divides
+// `steps` (those of hd, 14 at hd 112, or of a key tile)
+constexpr int f32_chunk(int steps, int c = F32_CHUNK) {
+  return steps % c == 0 ? c : f32_chunk(steps, c - 1);
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
@@ -175,15 +184,22 @@ struct Warp;
 
 template <int HD>
 struct Warp<float, HD> {
-  static constexpr int BK = HD == 64 ? F32_BK_HD64 : F32_BK_HD128;
-  // Q[row][2t..2t+1] and K[key][2t..2t+1] as float2 (8-byte words
-  // g * LDK / 2 + t): LDK = 8 mod 32. V[2t][g]: LDV = 4 mod 32.
+  static constexpr int BK =
+      HD == 64 ? F32_BK_HD64 : (HD == 112 ? F32_BK_HD112 : F32_BK_HD128);
+  // Q[row][2t..2t+1] and K[key][2t..2t+1] are float2 loads: a half warp
+  // (g = 0..3) reads words g * LDK + 2t, 2t + 1, which fill the 32 banks
+  // once iff g * LDK mod 32 is 0, 8, 16, 24 in some order, i.e. LDK = 8
+  // (mod 16): 72, 120 and 136 floats at hd 64, 112 and 128. V[2t][g] is
+  // a scalar load of word 2t LDV + g over the whole warp, conflict-free
+  // iff 2 LDV = 8 or 24 (mod 32), i.e. LDV = 4 (mod 8): 68, 116, 132.
+  // Rows stay multiples of 16 bytes for cp.async.
   static constexpr int LDK = HD + 8;
   static constexpr int LDV = HD + 4;
+  static_assert(LDK % 16 == 8 && LDV % 8 == 4, "bank-conflict-free pads");
   // 8-deep steps summed from zero on the tensor cores, then added to the
   // fp32 accumulator
-  static constexpr int QK_STEPS = HD / 8 < F32_CHUNK ? HD / 8 : F32_CHUNK;
-  static constexpr int PV_STEPS = BK / 8 < F32_CHUNK ? BK / 8 : F32_CHUNK;
+  static constexpr int QK_STEPS = f32_chunk(HD / 8);
+  static constexpr int PV_STEPS = f32_chunk(BK / 8);
 
   // s = q k^T over the tile's BK keys (n-tile j: keys 8j..8j+7); sQ is
   // the warp's 16 rows
@@ -257,10 +273,14 @@ struct Warp<float, HD> {
 template <int HD>
 struct Warp<__nv_bfloat16, HD> {
   using T = __nv_bfloat16;
-  static constexpr int BK = HD == 64 ? BF16_BK_HD64 : BF16_BK_HD128;
-  // ldmatrix rows 16 bytes wide land 4 banks apart: LD = 8 mod 64
+  static constexpr int BK =
+      HD == 64 ? BF16_BK_HD64 : (HD == 112 ? BF16_BK_HD112 : BF16_BK_HD128);
+  // ldmatrix reads 8 rows of 16 bytes; they fill the 32 banks once iff
+  // the row stride is an odd number of 16 bytes (mod 128), i.e. LD = 8
+  // (mod 16) elements: 72, 120 and 136 at hd 64, 112 and 128
   static constexpr int LDK = HD + 8;  // also Q's
   static constexpr int LDV = HD + 8;
+  static_assert(LDK % 16 == 8 && LDV % 16 == 8, "bank-conflict-free pads");
   static __device__ __forceinline__ void qk(float (&s)[BK / 8][4],
                                             const T* sQ, const T* sK) {
     const int lane = threadIdx.x & 31;
@@ -492,8 +512,8 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // q, o: (B, Sq, H, hd) contiguous; k, v: (B, Sk, Hkv, hd) contiguous, all
-// of one type (is_bf16 ? bf16 : fp32) and 16-byte aligned. hd is 64 or
-// 128; H % Hkv == 0; causal requires Sq <= Sk. Launches on `stream` and
+// of one type (is_bf16 ? bf16 : fp32) and 16-byte aligned. hd is 64,
+// 112 or 128; H % Hkv == 0; causal requires Sq <= Sk. Launches on `stream` and
 // returns the cudaError_t of the launch (0 on success); does not
 // synchronise.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
@@ -513,6 +533,12 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                                  causal, s)
                      : launch<float, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal,
                                          s));
+  if (hd == 112)
+    return (int)(is_bf16
+                     ? launch<__nv_bfloat16, 112>(q, k, v, o, B, Sq, Sk, H,
+                                                  Hkv, causal, s)
+                     : launch<float, 112>(q, k, v, o, B, Sq, Sk, H, Hkv,
+                                          causal, s));
   if (hd == 128)
     return (int)(is_bf16
                      ? launch<__nv_bfloat16, 128>(q, k, v, o, B, Sq, Sk, H,

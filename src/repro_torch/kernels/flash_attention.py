@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gqa_attention_ref
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 # Kernel launches in this process; callers reset it to 0 to count a run.

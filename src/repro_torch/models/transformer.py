@@ -1,9 +1,12 @@
-"""Decoder-only transformer stack, dense and moe families.
+"""Decoder-only transformer stack (families: dense, moe, vlm, audio).
 
 Port of the reference package's ``models/transformer.py``. The
 reference stacks layer params on a leading n_layers axis and scans over
-them; the port keeps one ``Block`` module per layer and loops. The vlm
-and audio families are not ported yet and raise.
+them; the port keeps one ``Block`` module per layer and loops.
+
+VLM: precomputed patch embeddings (the frontend is a stub) are
+prepended to the text embeddings. Audio: K codebook streams are
+embedded and summed per frame; the head emits K logit sets.
 """
 from __future__ import annotations
 
@@ -18,20 +21,7 @@ from repro_torch.models.moe import MoE, moe_apply
 
 Cache = Tuple[torch.Tensor, torch.Tensor]   # each (n_layers, B, S_max, n_kv, hd)
 
-PORTED = ("dense", "moe")
-NOT_PORTED = {
-    "vlm": "ROADMAP.md Queue 1 item 6 (vlm and audio families)",
-    "audio": "ROADMAP.md Queue 1 item 6 (vlm and audio families)",
-    "ssm": "ROADMAP.md Queue 1 item 8 (ssm and hybrid stacks)",
-    "hybrid": "ROADMAP.md Queue 1 item 8 (ssm and hybrid stacks)",
-}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED:
-        where = NOT_PORTED.get(cfg.family, "no ROADMAP item")
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet: {where}")
+FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 # ----------------------------------------------------------------------
@@ -48,28 +38,34 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Parameters of a dense or moe decoder; names follow the
-    reference's param dict (``embed``, ``layers``, ``final_norm``,
-    ``lm_head``)."""
+    """Parameters of a dense, moe, vlm or audio decoder; names follow
+    the reference's param dict (``embed``, ``layers``, ``final_norm``,
+    ``lm_head``). Audio keeps one embedding table per codebook, (K, V, d),
+    and a head of all K logit sets, (d, K*V)."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32,
                  device=None) -> None:
         super().__init__()
-        require_ported(cfg)
-        self.embed = L._param((cfg.vocab_padded, cfg.d_model), dtype, device)
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"not a transformer family: {cfg.family!r}")
+        V, d = cfg.vocab_padded, cfg.d_model
+        audio = cfg.family == "audio"
+        self.embed = L._param((cfg.n_codebooks, V, d) if audio else (V, d),
+                              dtype, device)
         self.layers = nn.ModuleList(
             Block(cfg, dtype, device) for _ in range(cfg.n_layers))
-        self.final_norm = L.RMSNorm(cfg.d_model, dtype, device)
+        self.final_norm = L.RMSNorm(d, dtype, device)
         if not cfg.tie_embeddings:
-            self.lm_head = L._param((cfg.d_model, cfg.vocab_padded), dtype,
-                                    device)
+            self.lm_head = L._param(
+                (d, cfg.n_codebooks * V if audio else V), dtype, device)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.float32, device=None) -> Transformer:
     """Random weights drawn on ``generator``'s device: dense and expert
-    weights N(0, 1/d_in), embeddings N(0, 0.02^2), norms 1, biases 0.
-    A CPU generator gives the same weights on every device."""
+    weights N(0, 1/d_in), embeddings N(0, 0.02^2) (audio's head too),
+    norms 1, biases 0. A CPU generator gives the same weights on every
+    device."""
     p = Transformer(cfg, dtype, device)
     for blk in p.layers:
         blk.attn.reset_parameters(generator)
@@ -78,19 +74,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     p.embed.copy_(torch.randn(p.embed.shape, generator=generator,
                               device=generator.device) * 0.02)
     if not cfg.tie_embeddings:
-        L.dense_init_(p.lm_head, generator)
+        if cfg.family == "audio":
+            p.lm_head.copy_(torch.randn(p.lm_head.shape, generator=generator,
+                                        device=generator.device) * 0.02)
+        else:
+            L.dense_init_(p.lm_head, generator)
     return p
 
 
 # ----------------------------------------------------------------------
 def _embed_tokens(p: Transformer, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
+    if cfg.family == "audio":
+        # tokens: (B, K, S) -> sum of per-codebook embeddings
+        return sum(p.embed[k][tokens[:, k]] for k in range(cfg.n_codebooks))
     return p.embed[tokens]
 
 
 def _unembed(p: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = p.embed.t() if cfg.tie_embeddings else p.lm_head
     logits = x @ w.to(x.dtype)
+    if cfg.family == "audio":
+        B, S = x.shape[0], x.shape[1]
+        logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab_padded)
     if cfg.vocab_padded != cfg.vocab_size:
         # padded slots never win softmax/sampling
         logits[..., cfg.vocab_size:] = -1e30
@@ -122,11 +128,15 @@ def forward(
     tokens: torch.Tensor,
     cache: Optional[Cache] = None,
     cache_index: Optional[int] = None,
+    patch_embeds: Optional[torch.Tensor] = None,
     last_only: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Shared trunk. Returns (logits, cache); the cache is written in
-    place and returned."""
+    place and returned. A vlm's ``patch_embeds`` (B, n_patches, d) take
+    the first positions."""
     x = _embed_tokens(p, cfg, tokens)
+    if cfg.family == "vlm" and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     B, S = x.shape[0], x.shape[1]
     if cache_index is not None:
         positions = torch.full((B, 1), cache_index, dtype=torch.int32,

@@ -1,7 +1,8 @@
 """The port's serving path against the reference's, on the CPU: the
 dense smoke config from the reference's init, converted. Prefill and
-decode logits agree to 1e-5 and greedy tokens are identical. Also the
-package boundary: the port loads neither JAX nor the reference package.
+decode logits agree to 1e-5 and greedy tokens are identical. Also decode
+against prefill for every smoke config, and the package boundary: the
+port loads neither JAX nor the reference package.
 """
 import os
 import subprocess
@@ -146,13 +147,46 @@ def test_prompt_too_long_raises(engines):
         engines[1].generate(_prompt(7, S=60), n_new=8)
 
 
-@pytest.mark.parametrize("family", ["vlm", "audio", "ssm", "hybrid"])
-def test_unported_families_raise(family):
-    cfg = SMOKES[ARCH].replace(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unknown_family_raises():
+    """As the reference's Model.init: an unknown family is a ValueError."""
+    cfg = SMOKES[ARCH].replace(family="rnn")
+    m = build_model(cfg)
+    with pytest.raises(ValueError, match="rnn"):
+        m.init(torch.Generator(), device="cpu")
+    with pytest.raises(ValueError, match="rnn"):
+        m.init_cache(1, 8, device="cpu")
+    with pytest.raises(ValueError, match="rnn"):
         T.Transformer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", sorted(SMOKES))
+def test_decode_matches_prefill(arch):
+    """The port's counterpart of the reference's test of the same name:
+    the logits of a decode step after a prefill of S tokens equal the
+    last logits of a prefill of S + 1 (a vlm decodes at n_patches + S,
+    after the patches)."""
+    cfg = SMOKES[arch]
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    B, S = 2, 16
+    g = torch.Generator().manual_seed(1)
+    shape = (B, cfg.n_codebooks, S + 1) if cfg.family == "audio" \
+        else (B, S + 1)
+    toks = torch.randint(0, cfg.vocab_size, shape, generator=g)
+    batch = {"tokens": toks[..., :S]}
+    n_prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    if n_prefix:
+        batch["patch_embeds"] = torch.randn((B, n_prefix, cfg.d_model),
+                                            generator=g)
+    _, cache = model.prefill(params, batch,
+                             model.init_cache(B, S + n_prefix + 8,
+                                              device="cpu"))
+    lg_dec, _ = model.decode_step(params, cache, {
+        "tokens": toks[..., S:], "cache_index": S + n_prefix})
+    lg_full, _ = model.prefill(params, dict(batch, tokens=toks),
+                               model.init_cache(B, S + n_prefix + 8,
+                                                device="cpu"))
+    torch.testing.assert_close(lg_dec[:, 0], lg_full[:, -1], **TOL)
 
 
 def test_entry_points_default_to_cuda():
@@ -179,10 +213,11 @@ def test_port_imports_neither_jax_nor_reference():
         import numpy as np
         import repro_torch
         from repro_torch import ServeEngine, SMOKES
-        for arch in ("qwen2-0.5b", "qwen2-moe-a2.7b"):
-            res = ServeEngine(SMOKES[arch], max_seq=32, device="cpu").generate(
-                np.zeros((1, 8), np.int32), n_new=3)
-            assert res.tokens.shape == (1, 3)
+        for arch, cfg in SMOKES.items():
+            shape = (1, cfg.n_codebooks, 8) if cfg.family == "audio" else (1, 8)
+            res = ServeEngine(cfg, max_seq=32, device="cpu").generate(
+                np.zeros(shape, np.int32), n_new=3)
+            assert res.tokens.shape == shape[:-1] + (3,)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                      or m == "repro" or m.startswith("repro."))

@@ -65,6 +65,15 @@ def _tol(dtype):
     ((1, 17, 129, 8, 8, 64), True),
     ((2, 127, 500, 7, 1, 128), True),
     ((1, 1, 500, 8, 1, 64), True),
+    # hd 112: zamba2-7b's shared attention block, then ragged S, off the
+    # tiles, Sq < Sk and non-causal
+    ((4, 500, 500, 32, 32, 112), True),
+    ((2, 200, 200, 4, 1, 112), True),
+    ((1, 17, 17, 4, 4, 112), True),
+    ((2, 127, 500, 7, 1, 112), True),
+    ((1, 300, 300, 2, 2, 112), True),
+    ((1, 70, 300, 4, 2, 112), False),
+    ((2, 129, 127, 8, 8, 112), False),
 ])
 def test_kernel_matches_plain(hopper, shape, causal, dtype):
     q, k, v = _inputs(shape, dtype)
@@ -76,22 +85,31 @@ def test_kernel_matches_plain(hopper, shape, causal, dtype):
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("seed", range(4))
 @pytest.mark.parametrize("shape,causal", [
     ((4, 500, 500, 16, 16, 128), True),   # qwen2-moe-a2.7b prefill
     ((4, 500, 500, 14, 2, 64), True),     # qwen2-0.5b prefill
     ((1, 200, 200, 2, 2, 128), True),     # the CPU emulation's cut
     ((1, 129, 500, 8, 1, 128), True),
     ((1, 70, 300, 4, 2, 128), False),
+    ((4, 500, 500, 32, 32, 112), True),   # zamba2-7b prefill
+    ((1, 129, 500, 8, 1, 112), True),
+    ((1, 70, 300, 4, 2, 112), False),
 ])
-def test_kernel_matches_plain_peaked(hopper, shape, causal):
+def test_kernel_matches_plain_peaked(hopper, shape, causal, seed):
     """fp32 with q scaled by 8 (logits x8, a peaked softmax): plain TF32
-    is 1e-2 off here, so the small parts of 3xTF32 decide the result. (In
-    bf16 the plain version rounds the scores themselves to bf16, 1 in a
-    logit of 300, so no kernel that keeps them in fp32 can match it.)"""
-    q, k, v = _inputs(shape, torch.float32)
+    is 1e-2 off here, so the small parts of 3xTF32 decide the result.
+    The plain version in fp32 is itself up to 2.6e-5 off the exact
+    result here (its q k^T is an fp32 sum of logits x8), so the kernel
+    is held to the plain version computed in float64 on the same
+    inputs. (In bf16 the plain version rounds the scores themselves to
+    bf16, 1 in a logit of 300, so no kernel that keeps them in fp32 can
+    match it.)"""
+    q, k, v = _inputs(shape, torch.float32, seed)
     q = q * 8
     out = fa.flash_attention(q, k, v, causal=causal)
-    want = gqa_attention_ref(q, k, v, causal=causal)
+    want = gqa_attention_ref(q.double(), k.double(), v.double(),
+                             causal=causal).float()
     torch.cuda.synchronize()
     torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
 
@@ -127,9 +145,9 @@ def test_kernel_causality(hopper):
 def test_kernel_rejects_what_it_cannot_run(hopper):
     q, k, v = _inputs((1, 64, 64, 2, 1, 64), torch.float32)
     before = fa.launches
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                           v[..., :32].contiguous())
+    for hd in (32, 96):
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention(*_inputs((1, 64, 64, 2, 1, hd), torch.float32))
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="contiguous"):
@@ -312,5 +330,25 @@ def test_moe_engine_card_matches_cpu(hopper):
     a = gpu.generate(prompt, n_new=8)
     assert fa.launches == before_fa + cfg.n_layers
     assert gm.launches == before_gm + 3 * cfg.n_layers * (1 + 8)
+    b = cpu.generate(prompt, n_new=8)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def test_zamba2_engine_card_matches_cpu(hopper):
+    """A small Zamba2 (d_head 112, so K1 runs its hd-112 instantiation;
+    the smoke config's 16 is no kernel shape) greedy-decodes the same
+    tokens on the card as on the CPU path: one K1 launch per application
+    of the shared block in prefill, none in decode. The 140-token prompt
+    spans five SSD chunks of 32."""
+    cfg = SMOKES["zamba2-7b"].replace(d_model=448, n_heads=4, n_kv_heads=4,
+                                      d_head=112, d_ff=512, ssm_heads=14,
+                                      ssm_head_dim=64)
+    assert cfg.d_head == 112 and cfg.n_layers == 4
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 140))
+    gpu = ServeEngine(cfg, max_seq=160, device="cuda")
+    cpu = ServeEngine(cfg, max_seq=160, device="cpu")
+    before = fa.launches
+    a = gpu.generate(prompt, n_new=8)
+    assert fa.launches == before + cfg.n_layers // cfg.hybrid_attn_every
     b = cpu.generate(prompt, n_new=8)
     np.testing.assert_array_equal(a.tokens, b.tokens)

@@ -50,6 +50,7 @@ def _attn_pair(cfg, seed=0):
 def test_config_copy_matches_reference(table):
     """The port's own ModelConfig copy agrees field for field."""
     mine, ref = (ARCHS, J_ARCHS) if table == "arch" else (SMOKES, J_SMOKES)
+    assert list(mine) == list(ref)
     for arch_id, cfg in mine.items():
         want = ref[arch_id]
         assert dataclasses.asdict(cfg) == dataclasses.asdict(want)

@@ -4,7 +4,8 @@ GPU.
 
 Run from the repository root on a machine with the card and ``nvcc``:
 
-    python3 tools/k1_variants.py [--also LABEL=PATH ...] [--sass]
+    python3 tools/k1_variants.py [--model NAME ...] [--also LABEL=PATH ...]
+                                 [--sass]
 
 A variant is ``src/repro_torch/kernels/csrc/flash_attention.cu`` with
 some of its ``constexpr int NAME = value;`` constants replaced (warps a
@@ -18,11 +19,12 @@ wrapper, held against the plain version (its largest error, and its
 largest error over the tolerance, 2e-5 + 2e-5 |want| in fp32 and 2e-2 +
 2e-2 |want| in bf16, where above 1 fails; also with q scaled by 8,
 where the softmax is peaked, and there against float64 too), and timed
-with CUDA events (mean of 200 launches) at the two prefill shapes of
-the main path, in fp32 and bf16, in two rounds in opposite orders, with
-SDPA timed beside them in each round. Prints the card's name and power
-limit, ``ptxas`` registers and spills per variant (with ``--sass``, the
-opcode counts of the source's kernels too), and one JSON line per case.
+with CUDA events (mean of 200 launches) at the prefill shapes of the
+main paths (``--model`` picks some), in fp32 and bf16, in two rounds in
+opposite orders, with SDPA timed beside them in each round. Prints the
+card's name and power limit, ``ptxas`` registers and spills per variant
+(with ``--sass``, the opcode counts of the source's kernels too), and
+one JSON line per case.
 """
 from __future__ import annotations
 
@@ -44,17 +46,22 @@ VARIANTS = {
     "WARPS=2": {"WARPS": 2},
     "WARPS=8": {"WARPS": 8},
     "F32_BK_HD128=64": {"F32_BK_HD128": 64},
+    "F32_BK_HD112=64": {"F32_BK_HD112": 64},
     "F32_BK_HD64=32": {"F32_BK_HD64": 32},
     "BF16_BK_HD128=32": {"BF16_BK_HD128": 32},
+    "BF16_BK_HD112=32": {"BF16_BK_HD112": 32},
+    # at hd 112 (14 steps of 8) q k^T takes the deepest chunk that
+    # divides 14: 2 for F32_CHUNK=4, 7 for 8, 14 for 16
     "F32_CHUNK=1": {"F32_CHUNK": 1},
     "F32_CHUNK=4": {"F32_CHUNK": 4},
     "F32_CHUNK=8": {"F32_CHUNK": 8},
-    "F32_CHUNK=16": {"F32_CHUNK": 16},   # one chain over the whole depth
+    "F32_CHUNK=16": {"F32_CHUNK": 16},
 }
-# (B, Sq, Sk, H, Hkv, hd, causal): qwen2-0.5b's and qwen2-moe-a2.7b's
-# prefill of 4 x 500 tokens
+# (B, Sq, Sk, H, Hkv, hd, causal): the prefill of 4 x 500 tokens of
+# qwen2-0.5b, qwen2-moe-a2.7b and zamba2-7b's shared attention block
 SHAPES = {"qwen2-0.5b": (4, 500, 500, 14, 2, 64, True),
-          "qwen2-moe-a2.7b": (4, 500, 500, 16, 16, 128, True)}
+          "qwen2-moe-a2.7b": (4, 500, 500, 16, 16, 128, True),
+          "zamba2-7b": (4, 500, 500, 32, 32, 112, True)}
 
 
 def main() -> int:
@@ -62,6 +69,8 @@ def main() -> int:
     ap.add_argument("--also", action="append", default=[],
                     metavar="LABEL=PATH",
                     help="another flash_attention.cu to time as a variant")
+    ap.add_argument("--model", action="append", choices=sorted(SHAPES),
+                    help="time only this model's shape (default: all)")
     ap.add_argument("--sass", action="store_true",
                     help="print the SASS opcode counts of each kernel of "
                     "the package's own source")
@@ -81,6 +90,8 @@ def main() -> int:
             print(f"sass {kernel}: {sum(ops.values())} instructions, "
                   + json.dumps(dict(ops.most_common(16))))
     for model, (B, Sq, Sk, H, Hkv, hd, causal) in SHAPES.items():
+        if args.model and model not in args.model:
+            continue
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             g = torch.Generator(device="cuda").manual_seed(0)
             q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
