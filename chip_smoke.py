@@ -28,7 +28,7 @@ Run from the repository root, with nothing else on the command line:
    by kernel, phase and shape, each launch's device time read from CUDA
    events around it, K2's ``rows`` read after the run), then holds the
    card against the CPU path at full width and 2 layers.
-5. Zamba2 engine, this slice's main run: serves zamba2-7b at its full
+5. Zamba2 engine: serves zamba2-7b at its full
    width and depth in fp32 (81 Mamba2 layers and 13 applications of the
    shared attention block, 6.75 B parameters, 27 GB, drawn on the card)
    through ``ServeEngine.generate``, checks 13 K1 launches per prefill
@@ -40,7 +40,18 @@ Run from the repository root, with nothing else on the command line:
    zero patch embeddings before the text; K1 at S = 756), musicgen-large
    (four codebook streams) and xlstm-350m (no attention, so no K1); each
    also held against the CPU path at 2 layers.
-7. Timing: times each kernel at each of its main-path shapes, its plain
+7. Fleet sweep: the port's fluid fleet simulator
+   (``repro_torch.core.sim_torch``, no kernel of its own) runs the whole
+   collocation grid on the card: all 78 pairs of the 12 workloads x the
+   49 EU splits of an 8 ME / 8 VE core x 5 HBM bandwidths, harvest off
+   and on (2 x 19110 cells, 4 requests each). The card is held to the
+   same call on the CPU (equal events in every cell, floats within
+   ``SIM_REL_TOL``) and, at the half split of three pairs, to the port's
+   discrete-event simulator in the bands of ``tests/test_sim_jax.py``;
+   prints the card's grid time (median and spread of 3 calls after a
+   warm-up), the CPU's, the discrete simulator's time per cell over the
+   nine paper pairs, the loop's iterations and the largest event count.
+8. Timing: times each kernel at each of its main-path shapes, its plain
    version and the PyTorch library call that computes the same
    function (with the kernels that call ran, from torch.profiler),
    beside the least time the card could take for the same work, and
@@ -853,6 +864,150 @@ def timing_phase(fa, gm, ref, tallies, cfgs):
     return kernels
 
 
+# The fluid simulator on the card against the same call on the CPU: the
+# relative tolerance of tests/test_torch_sim.py (REL_TOL), where the port
+# equals the reference bit for bit.
+SIM_REL_TOL = 0.0
+
+
+def fleet_oracle(core, pairs, policy):
+    """The port's discrete simulator on ``pairs`` of workload names at
+    the half split of ``core`` (n_requests 4): (makespans, seconds spent
+    in ``Simulator.run``)."""
+    from repro_torch.core import (Simulator, TenantSpec, VNPUConfig,
+                                  VNPUManager, compile_neuisa)
+    from repro_torch.npu.workloads import get_workload
+
+    out, seconds = [], 0.0
+    for names in pairs:
+        mgr = VNPUManager(core=core)
+        specs = [TenantSpec(compile_neuisa(get_workload(n, core), core),
+                            mgr.create(VNPUConfig(core.n_me // 2,
+                                                  core.n_ve // 2,
+                                                  hbm_bytes=1 << 30)), 4)
+                 for n in names]
+        t0 = time.perf_counter()
+        out.append(Simulator(specs, policy=policy, core=core).run().makespan)
+        seconds += time.perf_counter() - t0
+    return out, seconds
+
+
+def fleet_phase() -> dict:
+    """The collocation grid of the fluid simulator on the card: all 78
+    pairs of the 12 workloads (self-pairs included) x the 49 EU splits of
+    an 8 ME / 8 VE core (each tenant >= 1 ME and >= 1 VE) x 5 HBM
+    bandwidths, 4 requests per tenant, harvest off and on (2 x 19110
+    cells). Holds the card against the same call on the CPU (events
+    equal, floats within SIM_REL_TOL) and the half-split cells of three
+    pairs on the default core against the port's discrete simulator in
+    the bands of tests/test_sim_jax.py; times the card grid (one warm-up,
+    then 3 calls), the CPU grid and the discrete simulator per cell."""
+    from repro_torch.core import compile_neuisa, sim_torch
+    from repro_torch.npu.hw_config import DEFAULT_CORE, NPUCoreConfig
+    from repro_torch.npu.workloads import PAPER_PAIRS, WORKLOADS, get_workload
+
+    core = NPUCoreConfig(n_me=8, n_ve=8)
+    t0 = time.perf_counter()
+    progs = {n: compile_neuisa(get_workload(n, core), core)
+             for n in WORKLOADS}
+    compile_s = time.perf_counter() - t0
+    names = list(itertools.combinations_with_replacement(WORKLOADS, 2))
+    pairs = [(progs[a], progs[b]) for a, b in names]
+    splits = [((m, 8 - m), (v, 8 - v)) for m in range(1, 8)
+              for v in range(1, 8)]
+    bws = (0.5, 0.75, 1.0, 1.5, 2.0)
+    n_cells = len(pairs) * len(splits) * len(bws)
+    check(n_cells == 19110, f"fleet grid has {n_cells} cells, not 19110")
+
+    def grid(device):
+        """{harvest: leaves} and {harvest: loop iterations}."""
+        out, iters = {}, {}
+        for h in (False, True):
+            sim_torch.iterations = 0
+            out[h] = sim_torch.sweep_collocations(
+                pairs, splits, bw_points=bws, n_requests=4, harvest=h,
+                core=core, device=device)
+            iters[h] = sim_torch.iterations
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return out, iters
+
+    grid("cuda")                                   # warm-up
+    card_s = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        card, iterations = grid("cuda")
+        card_s.append(time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    cpu, _ = grid("cpu")
+    cpu_s = time.perf_counter() - t1
+
+    ev_diff, max_rel, stalled, max_ev = 0, 0.0, 0, 0
+    for h in (False, True):
+        g = {k: v.cpu() for k, v in card[h].items()}
+        c = cpu[h]
+        check(g["makespan"].shape == (len(pairs), len(splits), len(bws)),
+              f"fleet grid shape {tuple(g['makespan'].shape)}")
+        ev_diff += int((g["events"] != c["events"]).sum())
+        for k in ("makespan", "throughput", "me_util", "ve_util"):
+            check(bool(torch.isfinite(g[k]).all()), f"fleet {k} not finite")
+            d = (g[k].double() - c[k].double()).abs()
+            rel = d / c[k].double().abs().clamp(min=1e-300)
+            max_rel = max(max_rel, float(torch.where(d == 0, 0.0, rel).max()))
+        ev = c["events"]
+        stalled += int((ev == 200_000).sum())
+        max_ev = max(max_ev, int(ev[ev < 200_000].max()))
+    print(f"fleet sweep, card vs CPU over 2 x {n_cells} cells: {ev_diff} "
+          f"cells with different events, max relative d {max_rel:.3e} "
+          f"(limit {SIM_REL_TOL})")
+    check(ev_diff == 0, f"fleet sweep: {ev_diff} cells' events differ")
+    check(max_rel <= SIM_REL_TOL, f"fleet sweep: card and CPU differ by "
+          f"{max_rel:.3e} relative")
+
+    # the half-split cells of three pairs against the discrete oracle
+    three = [("RsNt", "DLRM"), ("BERT", "ENet"), ("ENet", "TFMR")]
+    small = [(compile_neuisa(get_workload(a)), compile_neuisa(get_workload(b)))
+             for a, b in three]
+    fluid = {h: sim_torch.sweep_collocations(
+                 small, [((2, 2), (2, 2))], n_requests=4, harvest=h,
+                 device="cuda")["makespan"][:, 0, 0].cpu().numpy()
+             for h in (False, True)}
+    oracle = {h: fleet_oracle(DEFAULT_CORE, three,
+                              "neu10" if h else "neu10_nh")[0]
+              for h in (False, True)}
+    ratios = {h: [float(f) / o for f, o in zip(fluid[h], oracle[h])]
+              for h in (False, True)}
+    print(f"fleet sweep vs the discrete oracle, half split: no harvest "
+          f"{ratios[False]} (0.98-1.02), harvest {ratios[True]} (0.45-1.02)")
+    check(all(0.98 < r < 1.02 for r in ratios[False]),
+          "fluid (no harvest) outside 0.98-1.02 of neu10_nh")
+    check(all(0.45 < r <= 1.02 for r in ratios[True]),
+          "fluid (harvest) outside 0.45-1.02 of neu10")
+    check(bool(np.all(fluid[True] <= fluid[False] * 1.02)),
+          "harvest slower than no harvest")
+    check(np.argsort(oracle[False]).tolist()
+          == np.argsort(fluid[False]).tolist(),
+          "fluid pair ranking differs from the oracle's")
+
+    per_cell = {}
+    for policy in ("neu10_nh", "neu10"):
+        _, s_ = fleet_oracle(core, [p[:2] for p in PAPER_PAIRS], policy)
+        per_cell[policy] = s_ / len(PAPER_PAIRS) * 1e3
+    card_ms = sorted(t * 1e3 for t in card_s)
+    fleet = {"cells": 2 * n_cells, "pairs": len(pairs),
+             "splits": len(splits), "bw_points": len(bws),
+             "iterations": {"no_harvest": iterations[False],
+                            "harvest": iterations[True]},
+             "sync_every": sim_torch.SYNC_EVERY,
+             "max_events": max_ev, "stalled_cells": stalled,
+             "card_ms": card_ms, "card_median_ms": card_ms[1],
+             "cpu_ms": cpu_s * 1e3,
+             "discrete_ms_per_cell": per_cell,
+             "compile_ms": compile_s * 1e3}
+    print("fleet sweep: " + json.dumps(fleet))
+    return fleet
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -900,7 +1055,7 @@ def main() -> int:
     phase_done("moe engine")
     moe_card_vs_cpu(moe_cfg)
     phase_done("moe card vs CPU")
-    # this slice's main run: zamba2-7b at full width and depth
+    # zamba2-7b at full width and depth
     tallies[zamba_cfg.name], engines[zamba_cfg.name] = family_engine_phase(
         fa, gm, zamba_cfg, n_new=64)
     phase_done("zamba2 engine")
@@ -916,6 +1071,8 @@ def main() -> int:
             fa, gm, cfgs[arch], n_new=16)
         card_vs_cpu(cfgs[arch], cut, S=256)
         phase_done(f"{arch} engine and card vs CPU")
+    fleet_phase()
+    phase_done("fleet sweep")
     kernels = timing_phase(fa, gm, ref, tallies, cfgs)
     phase_done("timing")
     for row in kernels:

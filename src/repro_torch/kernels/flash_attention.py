@@ -48,6 +48,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool) -> torch.Tensor:
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the flash_attention kernel has no backward; training takes "
+            "the non-kernel attention routes")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"q, k and v must lie on one CUDA device; got "
                          f"{q.device}, {k.device}, {v.device}")

@@ -56,6 +56,10 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
 def _launch(x: torch.Tensor, w: torch.Tensor,
             rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     global launches
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError(
+            "the grouped_matmul kernel has no backward; training takes "
+            "the non-kernel expert route (the einsum path)")
     if not (x.is_cuda and w.device == x.device):
         raise ValueError(f"x and w must lie on one CUDA device; got "
                          f"{x.device}, {w.device}")

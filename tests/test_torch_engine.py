@@ -206,18 +206,28 @@ def test_entry_points_default_to_cuda():
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """A fresh interpreter that imports the port and serves on the CPU
-    has loaded no JAX and nothing of the reference package."""
+    """A fresh interpreter that imports the port, serves on the CPU,
+    compiles two workloads and runs the fluid simulator on the CPU has
+    loaded no JAX and nothing of the reference package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
         import repro_torch
+        import repro_torch.core
+        import repro_torch.npu
         from repro_torch import ServeEngine, SMOKES
+        from repro_torch.core import compile_neuisa
+        from repro_torch.core.sim_torch import pack_pair, simulate_pair
+        from repro_torch.npu.workloads import get_workload
         for arch, cfg in SMOKES.items():
             shape = (1, cfg.n_codebooks, 8) if cfg.family == "audio" else (1, 8)
             res = ServeEngine(cfg, max_seq=32, device="cpu").generate(
                 np.zeros(shape, np.int32), n_new=3)
             assert res.tokens.shape == shape[:-1] + (3,)
+        p1, p2 = (compile_neuisa(get_workload(n)) for n in ("MNIST", "NCF"))
+        out = simulate_pair(pack_pair(p1, p2, device="cpu"), (2, 2), (2, 2),
+                            2, device="cpu")
+        assert float(out["makespan"]) > 0 and int(out["events"]) > 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                      or m == "repro" or m.startswith("repro."))
@@ -243,3 +253,23 @@ def test_port_sources_import_no_jax_or_reference():
                 mod = s.split()[1]
                 assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), \
                     f"{f.name}: {s}"
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "grouped_matmul"])
+def test_kernel_launch_refuses_grad(kernel):
+    """The CUDA kernels have no backward: their launchers raise when
+    grad mode is on and an input requires grad, before the device
+    check. Under no_grad the same call gets past the guard and fails the
+    device check instead (these tensors lie on the CPU)."""
+    if kernel == "flash_attention":
+        from repro_torch.kernels import flash_attention as mod
+        args = [torch.zeros(1, 4, 2, 64), torch.zeros(1, 4, 2, 64),
+                torch.zeros(1, 4, 2, 64), True]
+    else:
+        from repro_torch.kernels import grouped_matmul as mod
+        args = [torch.zeros(2, 4, 8), torch.zeros(2, 8, 8)]
+    args[1].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mod._launch(*args)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
+        mod._launch(*args)
