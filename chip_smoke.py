@@ -868,6 +868,8 @@ def timing_phase(fa, gm, ref, tallies, cfgs):
 # relative tolerance of tests/test_torch_sim.py (REL_TOL), where the port
 # equals the reference bit for bit.
 SIM_REL_TOL = 0.0
+# Events per cell of the fleet phase's traced warm-up call.
+TRACE_EVENTS = 128
 
 
 def fleet_oracle(core, pairs, policy):
@@ -900,8 +902,15 @@ def fleet_phase() -> dict:
     cells). Holds the card against the same call on the CPU (events
     equal, floats within SIM_REL_TOL) and the half-split cells of three
     pairs on the default core against the port's discrete simulator in
-    the bands of tests/test_sim_jax.py; times the card grid (one warm-up,
-    then 3 calls), the CPU grid and the discrete simulator per cell."""
+    the bands of tests/test_sim_jax.py; times the card grid (3 calls),
+    the CPU grid and the discrete simulator per cell. The warm-up is one
+    cell, then the grid without harvest cut at TRACE_EVENTS events,
+    traced by ``torch.profiler``: kernels per iteration and the device's
+    idle share. Every op of the loop spans the whole grid, whether its cells
+    still run or not, so each iteration launches the same kernels on the
+    same widths as in the full call."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from profile_engine import traced
     from repro_torch.core import compile_neuisa, sim_torch
     from repro_torch.npu.hw_config import DEFAULT_CORE, NPUCoreConfig
     from repro_torch.npu.workloads import PAPER_PAIRS, WORKLOADS, get_workload
@@ -932,7 +941,19 @@ def fleet_phase() -> dict:
             torch.cuda.synchronize()
         return out, iters
 
-    grid("cuda")                                   # warm-up
+    sim_torch.sweep_collocations(pairs[:1], splits[:1], n_requests=1,
+                                 harvest=False, core=core, device="cuda")
+    full_events, sim_torch.MAX_EVENTS = sim_torch.MAX_EVENTS, TRACE_EVENTS
+    try:
+        sim_torch.iterations = 0
+        trace = traced(lambda: sim_torch.sweep_collocations(
+            pairs, splits, bw_points=bws, n_requests=4, harvest=False,
+            core=core, device="cuda"))
+    finally:
+        sim_torch.MAX_EVENTS = full_events
+    trace.pop("top")
+    trace["iterations"] = sim_torch.iterations
+    trace["kernels_per_iteration"] = trace["kernels"] / trace["iterations"]
     card_s = []
     for _ in range(3):
         t1 = time.perf_counter()
@@ -955,8 +976,8 @@ def fleet_phase() -> dict:
             rel = d / c[k].double().abs().clamp(min=1e-300)
             max_rel = max(max_rel, float(torch.where(d == 0, 0.0, rel).max()))
         ev = c["events"]
-        stalled += int((ev == 200_000).sum())
-        max_ev = max(max_ev, int(ev[ev < 200_000].max()))
+        stalled += int((ev == sim_torch.MAX_EVENTS).sum())
+        max_ev = max(max_ev, int(ev[ev < sim_torch.MAX_EVENTS].max()))
     print(f"fleet sweep, card vs CPU over 2 x {n_cells} cells: {ev_diff} "
           f"cells with different events, max relative d {max_rel:.3e} "
           f"(limit {SIM_REL_TOL})")
@@ -1003,7 +1024,8 @@ def fleet_phase() -> dict:
              "card_ms": card_ms, "card_median_ms": card_ms[1],
              "cpu_ms": cpu_s * 1e3,
              "discrete_ms_per_cell": per_cell,
-             "compile_ms": compile_s * 1e3}
+             "compile_ms": compile_s * 1e3,
+             "trace_no_harvest": trace}
     print("fleet sweep: " + json.dumps(fleet))
     return fleet
 

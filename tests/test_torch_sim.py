@@ -3,6 +3,9 @@ the CPU: cell for cell against the reference's ``sim_jax`` on the same
 programs, against the port's own discrete-event oracle in the bands of
 ``tests/test_sim_jax.py``, and frozen cells in a mixed batch.
 """
+import functools
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -10,6 +13,7 @@ import torch
 from repro.core import compile_neuisa as r_compile
 from repro.core import sim_jax
 from repro.npu.hw_config import DEFAULT_CORE as R_CORE
+from repro.npu.hw_config import NPUCoreConfig as RCoreConfig
 from repro.npu.workloads import get_workload as r_workload
 from repro_torch import resolve_device
 from repro_torch.core import (Simulator, TenantSpec, VNPUConfig, VNPUManager,
@@ -91,6 +95,59 @@ def test_simulate_pair_matches_reference(progs, max_events):
     assert port["throughput"].shape == (2,) and port["events"].dim() == 0
     assert (int(port["events"]) == 37) == (max_events == 37)
     _assert_cells_equal(ref, port)
+
+
+CORE88 = NPUCoreConfig(n_me=8, n_ve=8)
+# Cells of the 8 ME / 8 VE core where the port departs from a plain
+# transcription of the reference, each run to max_events = 5000:
+# (pair, (alloc_me, alloc_ve), bandwidth scale, harvest, stalls). The
+# first two stall on a zero time step (F7): the reference steps on to
+# max_events, the port jumps there; without the flush of subnormal
+# finish times to zero they would end. The last two end; without the
+# flush of subnormal remainders to zero they would stall.
+EDGE_CELLS = [
+    (("BERT", "DLRM"), ((7, 1), (1, 7)), 0.75, False, True),
+    (("NCF", "NCF"), ((2, 6), (6, 2)), 1.0, False, True),
+    (("DLRM", "NCF"), ((4, 4), (4, 4)), 0.75, False, False),
+    (("TFMR", "NCF"), ((4, 4), (4, 4)), 0.75, True, False),
+]
+EDGE_MAX_EVENTS = 5000
+
+
+@pytest.fixture(scope="module")
+def progs88():
+    """{workload: (reference program, port program)} on the 8/8 core."""
+    r_core = RCoreConfig(n_me=8, n_ve=8)
+    names = {n for cell in EDGE_CELLS for n in cell[0]}
+    return {n: (r_compile(r_workload(n, r_core), r_core),
+                compile_neuisa(get_workload(n, CORE88), CORE88))
+            for n in names}
+
+
+@pytest.mark.parametrize("cell", EDGE_CELLS,
+                         ids=lambda c: "-".join(c[0]) + f"-{c[2]}-h{int(c[3])}")
+def test_flush_and_stall_cells_match_reference(progs88, monkeypatch, cell):
+    """The cells that the port's subnormal flushes and its stall jump
+    decide, against the reference's jitted simulate_pair: events and
+    every float leaf equal, stalled cells at max_events, and a stalled
+    cell costs the port fewer loop iterations than max_events."""
+    (a, b), (me, ve), bw, harvest, stalls = cell
+    r_core = RCoreConfig(n_me=8, n_ve=8)
+    run = jax.jit(functools.partial(
+        sim_jax.simulate_pair, n_requests=4, harvest=harvest, core=r_core,
+        max_events=EDGE_MAX_EVENTS))
+    ref = run(sim_jax.pack_pair(progs88[a][0], progs88[b][0]),
+              np.array(me, np.float32), np.array(ve, np.float32),
+              hbm_scale=np.float32(bw))
+    monkeypatch.setattr(sim_torch, "SYNC_EVERY", 1)
+    monkeypatch.setattr(sim_torch, "iterations", 0)
+    port = sim_torch.simulate_pair(
+        sim_torch.pack_pair(progs88[a][1], progs88[b][1], device="cpu"),
+        me, ve, 4, harvest=harvest, hbm_scale=bw, core=CORE88,
+        max_events=EDGE_MAX_EVENTS, device="cpu")
+    _assert_cells_equal(ref, port)
+    assert (int(port["events"]) == EDGE_MAX_EVENTS) == stalls
+    assert sim_torch.iterations < EDGE_MAX_EVENTS
 
 
 def _oracle(w1, w2, policy, n_requests=4):
