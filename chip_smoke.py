@@ -40,7 +40,20 @@ Run from the repository root, with nothing else on the command line:
    zero patch embeddings before the text; K1 at S = 756), musicgen-large
    (four codebook streams) and xlstm-350m (no attention, so no K1); each
    also held against the CPU path at 2 layers.
-7. Fleet sweep: the port's fluid fleet simulator
+7. Training: trains full-width qwen2-0.5b (494,032,768 parameters,
+   not cut) on the card through ``train()``: fp32, TF32 off, remat on,
+   8 x 256 tokens of ``SyntheticLMData``, 10 steps; checks that the loss
+   falls and that neither kernel was launched (training takes the
+   reference's routes), prints ms per step, tokens/s, peak memory, the
+   6·N·T and 8·N·T FLOP bounds and a ``torch.profiler`` trace of one more
+   step; then, cut to 2 layers, holds 3 steps on the card to 3 on the
+   CPU from the same weights and 6 steps to 3 + checkpoint + resume + 3.
+8. Control plane: the serving session (the NPU simulated on the host):
+   qwen3-14b decode next to qwen2-0.5b prefill in closed loop under
+   every policy, then open loop with a mid-run register, SLO autoscale
+   and deregister; checks that every submitted request finished and
+   that the autoscaler grew the budget.
+9. Fleet sweep: the port's fluid fleet simulator
    (``repro_torch.core.sim_torch``, no kernel of its own) runs the whole
    collocation grid on the card: all 78 pairs of the 12 workloads x the
    49 EU splits of an 8 ME / 8 VE core x 5 HBM bandwidths, harvest off
@@ -51,13 +64,13 @@ Run from the repository root, with nothing else on the command line:
    prints the card's grid time (median and spread of 3 calls after a
    warm-up), the CPU's, the discrete simulator's time per cell over the
    nine paper pairs, the loop's iterations and the largest event count.
-8. Timing: times each kernel at each of its main-path shapes, its plain
-   version and the PyTorch library call that computes the same
-   function (with the kernels that call ran, from torch.profiler),
-   beside the least time the card could take for the same work, and
-   beside its device time per launch inside the main run; K1 also in
-   bf16; K2 also with the ``rows`` of the main run, beside the least
-   time for what those rows need.
+10. Timing: times each kernel at each of its main-path shapes, its plain
+    version and the PyTorch library call that computes the same
+    function (with the kernels that call ran, from torch.profiler),
+    beside the least time the card could take for the same work, and
+    beside its device time per launch inside the main run; K1 also in
+    bf16; K2 also with the ``rows`` of the main run, beside the least
+    time for what those rows need.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}``
 line before the last line, which is ``{"ok": true, "device": {...}}``.
@@ -73,6 +86,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -85,6 +99,14 @@ H100_FP32_FLOPS = 67e12      # non-tensor fp32, SXM, 700 W (data sheet)
 H100_TF32_FLOPS = 494.7e12   # dense tensor-core tf32
 H100_BF16_FLOPS = 989e12     # dense tensor-core bf16
 H100_BYTES_PER_S = 3.35e12   # HBM3
+
+# Training, card against the port's CPU path: the largest relative
+# difference of a loss over 3 steps of the 2-layer cut of qwen2-0.5b
+# (4 x 128 tokens, lr 1e-3) that the check allows. Measured on an H100
+# 80GB HBM3 at 700 W: 8.0e-8 (the fp32 GEMMs sum in another order).
+TRAIN_CARD_CPU_RTOL = 1e-6
+# Resume: the reference's own bound (tests/test_train.py).
+RESUME_RTOL = 1e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -872,6 +894,180 @@ SIM_REL_TOL = 0.0
 TRACE_EVENTS = 128
 
 
+def max_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def train_step_trace(cfg, state, B: int, S: int) -> dict:
+    """One more training step of ``state``, traced by ``torch.profiler``
+    after an untraced one: host ms, device busy ms, idle share, kernels
+    and the longest kernels by name."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from profile_engine import traced
+    from repro_torch import build_model
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+
+    step = make_train_step(build_model(cfg), peak_lr=1e-3, warmup=2)
+    data = SyntheticLMData(cfg, B, S, seed=1)
+    batches = [{k: torch.from_numpy(v).to("cuda", torch.long)
+                for k, v in data.sample(i).items()} for i in range(2)]
+    step(state, batches[0])
+    torch.cuda.synchronize()
+    return traced(lambda: step(state, batches[1]))
+
+
+def train_phase(fa, gm, cfg) -> dict:
+    """Trains full-width ``cfg`` (qwen2-0.5b) on the card through
+    ``train()``: fp32, TF32 off, remat on, batch 8 x 256 tokens of
+    ``SyntheticLMData``, 10 steps with a 2-step warm-up. Checks that the
+    loss falls and that no K1 or K2 launch happened (training takes the
+    reference's routes: the kernels have no backward). Then, at the
+    same width cut to 2 layers: 3 steps on the card against 3 on the
+    CPU from the same weights (a CPU generator), and 6 steps against 3 +
+    checkpoint + resume + 3 on the card."""
+    from repro_torch.train import TrainConfig, train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    B, S, steps = 8, 256, 10
+    fa.launches = gm.launches = 0
+    out = train(cfg, TrainConfig(steps=steps, batch=B, seq=S, peak_lr=1e-3,
+                                 warmup=2, log_every=1, device="cuda"))
+    launches = {"flash_attention": fa.launches,
+                "grouped_matmul": gm.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = sum(p.numel() for p in out["state"]["params"].parameters())
+    losses = out["losses"]
+    check(launches == {"flash_attention": 0, "grouped_matmul": 0},
+          f"training launched a kernel: {launches}")
+    check(np.isfinite(losses).all(), f"non-finite training loss {losses}")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]) - 0.1,
+          f"the loss did not fall: {losses}")
+    ms = 1e3 * np.array(out["step_s"][1:])
+    T = B * S
+    trace = train_step_trace(cfg, out["state"], B, S)
+    report = {
+        "model": cfg.name, "params": n, "batch": B, "seq": S,
+        "steps": steps, "losses": losses,
+        "first_step_ms": 1e3 * out["step_s"][0],
+        "step_ms_median": float(np.median(ms)),
+        "step_ms_min": float(ms.min()), "step_ms_max": float(ms.max()),
+        "tokens_per_s": T / float(np.median(ms)) * 1e3,
+        "peak_gb": peak_gb,
+        "bound_6NT_ms": 6 * n * T / H100_FP32_FLOPS * 1e3,
+        "bound_8NT_remat_ms": 8 * n * T / H100_FP32_FLOPS * 1e3,
+        "kernel_launches": launches,
+        "trace_one_step": trace,
+    }
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = cfg.replace(n_layers=2)
+    quiet = dict(log_fn=lambda *_: None)
+    tc = dict(steps=3, batch=4, seq=128, peak_lr=1e-3, warmup=1,
+              log_every=100)
+    t0 = time.perf_counter()
+    card = train(cut, TrainConfig(device="cuda", **tc), **quiet)["losses"]
+    t1 = time.perf_counter()
+    cpu = train(cut, TrainConfig(device="cpu", **tc), **quiet)["losses"]
+    t2 = time.perf_counter()
+    report["card_vs_cpu"] = {"layers": 2, "batch": 4, "seq": 128,
+                             "card": card, "cpu": cpu,
+                             "max_rel": max_rel(card, cpu),
+                             "rtol": TRAIN_CARD_CPU_RTOL,
+                             "card_s": t1 - t0, "cpu_s": t2 - t1}
+    check(report["card_vs_cpu"]["max_rel"] <= TRAIN_CARD_CPU_RTOL,
+          f"training losses, card {card} vs CPU {cpu}")
+
+    tc = dict(batch=B, seq=S, peak_lr=1e-3, warmup=2, log_every=100,
+              device="cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        full = train(cut, TrainConfig(steps=6, **tc), **quiet)["losses"]
+        train(cut, TrainConfig(steps=3, ckpt_dir=d, ckpt_every=3, **tc),
+              **quiet)
+        resumed = train(cut, TrainConfig(steps=6, ckpt_dir=d, ckpt_every=3,
+                                         **tc), **quiet)["losses"]
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d).rglob("*")
+                         if f.is_file())
+    report["resume"] = {"layers": 2, "full": full[3:], "resumed": resumed,
+                        "max_rel": max_rel(resumed, full[3:]),
+                        "rtol": RESUME_RTOL, "ckpt_bytes": ckpt_bytes,
+                        "s": time.perf_counter() - t0}
+    check(len(resumed) == 3 and report["resume"]["max_rel"] <= RESUME_RTOL,
+          f"resumed losses {resumed} vs {full[3:]}")
+    print("train: " + json.dumps(report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def control_plane_phase() -> dict:
+    """The serving control plane (``serve.session``; the NPU simulated on
+    the host): qwen3-14b decode next to qwen2-0.5b prefill in closed loop
+    under every policy, then an open-loop session in which the second
+    tenant registers mid-run with a 1 ms p95 SLO, the autoscaler grows
+    it and it deregisters while the first still serves. The second
+    tenant's load (10 requests/s) is one its vNPU can finish in the
+    window, so every submitted request completes."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.policies import available_policies
+    from repro_torch.npu.trace import lm_trace
+    from repro_torch.serve import (NPUCluster, PoissonArrivals,
+                                   SLOAutoscaler, ServingSession,
+                                   run_closed_loop)
+
+    t0 = time.perf_counter()
+    llm = lm_trace(ARCHS["qwen3-14b"], batch=8, seq=2048, phase="decode")
+    small = lm_trace(ARCHS["qwen2-0.5b"], batch=8, seq=512, phase="prefill")
+
+    def row(r):
+        return {"p95_ms": r.p95_ms, "throughput_rps": r.throughput_rps,
+                "requests_done": r.requests_done}
+
+    closed = {}
+    for policy in available_policies():
+        cluster = NPUCluster(policy=policy)
+        cluster.register("qwen3-14b/decode", llm, eu_budget=4)
+        cluster.register("qwen2-0.5b/prefill", small, eu_budget=4)
+        _, reports = run_closed_loop(cluster, n_requests=5)
+        closed[policy] = {r.name: row(r) for r in reports}
+        check(all(r.requests_done >= 5 for r in reports),
+              f"closed loop under {policy}: {closed[policy]}")
+
+    sess = ServingSession(NPUCluster(policy="neu10"),
+                          autoscaler=SLOAutoscaler(max_eus=6))
+    t_llm = sess.register("qwen3-14b/decode", llm, eu_budget=4)
+    sess.submit_arrivals(t_llm, PoissonArrivals(rate_rps=6.0, n=120, seed=0))
+    sess.run_until(5.0)
+    t_sm = sess.register("qwen2-0.5b/prefill", small, eu_budget=2,
+                         slo_p95_ms=1.0)
+    n_sm = sess.submit_arrivals(t_sm, PoissonArrivals(
+        rate_rps=10.0, n=50, seed=1, start_s=sess.now_s))
+    before = t_sm.eu_budget
+    sess.run_until(sess.now_s + 5.0)
+    sess.run_until(sess.now_s + 5.0)   # a second window lets the hook act
+    r_sm = sess.report(t_sm)[0]
+    open_loop = {"small": dict(row(r_sm), eu_budget=[before, t_sm.eu_budget],
+                               submitted=n_sm, deregistered_at_s=sess.now_s)}
+    sess.deregister(t_sm)
+    sess.drain()
+    r_llm = sess.report(t_llm)[0]
+    open_loop["llm"] = dict(row(r_llm), submitted=120, end_s=sess.now_s)
+    check(r_sm.requests_done == n_sm and r_sm.queued == 0,
+          f"the second tenant left requests unfinished: {open_loop}")
+    check(r_llm.requests_done == 120, f"the LLM tenant: {open_loop}")
+    check(t_sm.eu_budget > before, "the autoscaler did not grow the budget")
+    report = {"closed_loop": closed, "open_loop": open_loop,
+              "s": time.perf_counter() - t0}
+    print("control plane: " + json.dumps(report))
+    return report
+
+
 def fleet_oracle(core, pairs, policy):
     """The port's discrete simulator on ``pairs`` of workload names at
     the half split of ``core`` (n_requests 4): (makespans, seconds spent
@@ -1093,6 +1289,10 @@ def main() -> int:
             fa, gm, cfgs[arch], n_new=16)
         card_vs_cpu(cfgs[arch], cut, S=256)
         phase_done(f"{arch} engine and card vs CPU")
+    train_phase(fa, gm, dense_cfg)
+    phase_done("training")
+    control_plane_phase()
+    phase_done("control plane")
     fleet_phase()
     phase_done("fleet sweep")
     kernels = timing_phase(fa, gm, ref, tallies, cfgs)

@@ -1,24 +1,30 @@
 """PyTorch / CUDA port of the ``repro`` functional layer for NVIDIA Hopper.
 
-The package mirrors ``repro``'s module names (``configs``, ``core``,
-``kernels``, ``models``, ``npu``, ``serve``) and imports neither ``jax``
-nor ``repro``: it keeps its own copy of what it needs. It serves every
-family of the reference's zoo end to end (dense, moe, vlm, audio, the
-xLSTM ssm stack and the Zamba2 hybrid). Two hand-written CUDA kernels,
-built with ``nvcc`` at first use, carry the hot spots: flash attention
-in prefill (``kernels/csrc/flash_attention.cu``) and the MoE experts'
-grouped GEMMs (``kernels/csrc/grouped_matmul.cu``).
+The package mirrors ``repro``'s module names (``checkpoint``,
+``configs``, ``core``, ``data``, ``distributed``, ``kernels``,
+``launch``, ``models``, ``npu``, ``optim``, ``serve``, ``train``) and
+imports neither ``jax`` nor ``repro``: it keeps its own copy of what it
+needs. It serves every family of the reference's zoo end to end (dense,
+moe, vlm, audio, the xLSTM ssm stack and the Zamba2 hybrid) and trains
+each on one device. Two hand-written CUDA kernels, built with ``nvcc``
+at first use, carry the serving hot spots: flash attention in prefill
+(``kernels/csrc/flash_attention.cu``) and the MoE experts' grouped GEMMs
+(``kernels/csrc/grouped_matmul.cu``). Neither has a backward, so
+training takes the reference's own routes (masked or chunked attention,
+einsum experts).
 
-``npu`` (the simulated NPU core, cost model and workload traces) and
+``npu`` (the simulated NPU core, cost model and workload traces),
 ``core`` (vNPUs, mapper, allocator, NeuISA compiler, scheduler policies,
-the discrete-event simulator, fabric, faults and admission) are copies of
-the reference's jax-free modules; ``core.sim_torch`` is the fluid fleet
-simulator rewritten in PyTorch, and is not imported by ``core``.
+the discrete-event simulator, fabric, faults and admission), the serving
+control plane (``serve.session``, ``serve.vserve``), ``data.pipeline``
+and ``distributed.fault`` are copies of the reference's jax-free
+modules; ``core.sim_torch`` is the fluid fleet simulator rewritten in
+PyTorch, and is not imported by ``core``.
 
-Entry points (``ServeEngine``, ``build_model``, ``Model.init``, the
-``core.sim_torch`` functions) run on ``cuda`` unless the caller passes
-``device="cpu"``. Without a card they raise; they never drop to the CPU
-on their own.
+Entry points (``ServeEngine``, ``build_model``, ``Model.init``,
+``train.train``, the ``core.sim_torch`` functions) run on ``cuda``
+unless the caller passes ``device="cpu"``. Without a card they raise;
+they never drop to the CPU on their own.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Convert the reference package's params, KV caches and recurrent
-states into the port's.
+"""Convert the reference package's params, KV caches, recurrent states
+and training states into the port's, and the port's params and training
+states back into the reference's trees.
 
 The reference keeps params as a nested dict with stacked blocks: the
 transformer's ``layers`` and Zamba2's ``mamba`` on a leading n_layers
@@ -10,7 +11,9 @@ layer's ``moe.{router,w_gate,w_up,w_down,shared.*}`` and Zamba2's
 are taken as numpy arrays (``np.asarray`` of a reference array works
 without importing its framework); the ``x @ W`` (d_in, d_out)
 orientation, the cache shape (n_layers, B, S_max, n_kv, hd) and the
-states' stacked shapes are kept as they are.
+states' stacked shapes are kept as they are. Going back
+(``params_to_jax``, ``state_to_jax``) restacks the blocks, so a port
+checkpoint is keyed and shaped as the reference's.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from repro_torch.models.transformer import Cache, Transformer
 
 
 def to_tensor(a: Any, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.array(a)   # a writable, contiguous copy
     if a.dtype.name == "bfloat16":   # ml_dtypes' bf16: reinterpret the bits
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
@@ -77,6 +82,69 @@ def load_(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     if unused:
         raise ValueError(f"reference params with no counterpart: {unused}")
     return module
+
+
+def _restack(module: nn.Module, named: Mapping[str, torch.Tensor]
+             ) -> Dict[str, Any]:
+    """The reference tree of per-parameter tensors ``named`` (keyed by
+    the module's parameter names): blocks stacked on their leading axes
+    in the reference's order, leaves as CPU tensors that share no memory
+    with ``named``."""
+    groups: Dict[str, Dict[Tuple[int, ...], torch.Tensor]] = {}
+    for name, t in named.items():
+        key, idx = _reference_key(module, name)
+        groups.setdefault(key, {})[idx] = t.detach()
+    tree: Dict[str, Any] = {}
+    for key, parts in groups.items():
+        if list(parts) == [()]:
+            leaf = parts[()].to("cpu", copy=True)
+        else:
+            shape = tuple(max(i[a] for i in parts) + 1
+                          for a in range(len(next(iter(parts)))))
+            first = next(iter(parts.values()))
+            leaf = torch.empty(shape + first.shape, dtype=first.dtype)
+            for idx, t in parts.items():
+                leaf[idx] = t
+        node = tree
+        *path, last = key.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
+
+
+def params_to_jax(module: nn.Module) -> Dict[str, Any]:
+    """The reference param tree of the port's params module (the inverse
+    of ``params_from_jax``), leaves as CPU tensors in the params' dtype."""
+    return _restack(module, dict(module.named_parameters()))
+
+
+def state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference training state (``launch.steps.init_train_state``'s
+    tree: params, AdamW moments ``m``/``v``, ``step``) of a port training
+    state, leaves as CPU tensors that share no memory with it."""
+    module = state["params"]
+    return {"params": params_to_jax(module),
+            "m": _restack(module, state["m"]),
+            "v": _restack(module, state["v"]),
+            "step": state["step"].detach().to("cpu", copy=True)}
+
+
+def load_state_(state: Mapping[str, Any], tree: Mapping[str, Any]
+                ) -> Mapping[str, Any]:
+    """Copy a reference training-state tree into the port's training
+    state in place (the inverse of ``state_to_jax``)."""
+    module = state["params"]
+    load_(module, tree["params"])
+    with torch.no_grad():
+        for part in ("m", "v"):
+            dst = state[part]
+            flat = _flatten(tree[part])
+            for name, t in dst.items():
+                key, idx = _reference_key(module, name)
+                t.copy_(to_tensor(flat[key], t.device)[idx])
+        state["step"].copy_(to_tensor(tree["step"], state["step"].device))
+    return state
 
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any],

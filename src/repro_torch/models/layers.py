@@ -126,6 +126,46 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  chunk: int = 512) -> torch.Tensor:
+    """Causal attention as a loop over KV blocks of ``chunk`` keys with
+    an online fp32 softmax: the reference's ``_sdpa_chunked``, training's
+    route with ``use_flash=True`` at S >= 256. q (B,S,H,hd), k/v
+    (B,S,Hkv,hd)."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = q.reshape(B, S, Hkv, g, hd)
+    q_pos = torch.arange(S, device=q.device)
+    m_run = torch.full((B, S, Hkv, g), -1e30, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros((B, S, Hkv, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, Hkv, g, hd), dtype=torch.float32,
+                      device=q.device)
+    for ci in range(nc):
+        k_b = k[:, ci * chunk:(ci + 1) * chunk]
+        v_b = v[:, ci * chunk:(ci + 1) * chunk]
+        s = torch.einsum("bskgh,btkh->bskgt", qg, k_b).float() * scale
+        k_pos = ci * chunk + torch.arange(chunk, device=q.device)
+        causal = q_pos[:, None] >= k_pos[None, :]
+        s = s.masked_fill(~causal[None, :, None, None, :], -1e30)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        alpha = torch.exp(m_run - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_run = l_run * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bskgt,btkh->bskgh", p.to(v_b.dtype), v_b).float()
+        m_run = m_new
+    out = acc / l_run.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype).reshape(B, S, H, hd)
+
+
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Reference attention: q (B,S,H,hd), k/v (B,T,Hkv,hd), GQA via
@@ -151,13 +191,18 @@ def attention_apply(
     cache: Optional[Cache] = None,
     cache_index: Optional[int] = None,
     causal: bool = True,
+    use_flash: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Full-sequence (prefill) or single-step (decode) attention.
+    """Full-sequence (train/prefill) or single-step (decode) attention.
 
     cache: (k_cache, v_cache) each (B, S_max, n_kv, hd), written in
     place. In decode, ``x`` is (B, 1, d) and ``cache_index`` the write
-    position. Full-sequence causal attention runs the flash-attention
-    kernel on CUDA tensors (its plain version on CPU tensors) at every S.
+    position. ``use_flash`` picks the full-sequence causal route: None
+    (serving) runs the flash-attention kernel on CUDA tensors (its plain
+    version on CPU tensors) at every S; False and True are the
+    reference's training routes, the masked ``_sdpa``, or with True
+    ``_sdpa_chunked`` at S >= 256. The kernel has no backward, so
+    training never takes it.
     """
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
@@ -173,8 +218,14 @@ def attention_apply(
         # math stays in the compute dtype
         out = _sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), valid)
     else:
-        if causal:
+        if causal and use_flash is None:
             out = kops.flash_attention(q, k, v, causal=True)
+        elif causal and use_flash and S >= 256:
+            out = _sdpa_chunked(q, k, v)
+        elif causal:
+            mask = torch.ones((S, S), dtype=torch.bool,
+                              device=x.device).tril()[None, None, None]
+            out = _sdpa(q, k, v, mask)
         else:
             out = _sdpa(q, k, v, None)
         if cache is not None:

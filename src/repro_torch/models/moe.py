@@ -104,9 +104,13 @@ def topk_gap(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> float:
 
 
 def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor,
-              capacity_factor: float = 1.25
+              capacity_factor: float = 1.25, einsum: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_loss). x: (B, S, d).
+
+    The expert GEMMs run through K2's entry point (serving), or with
+    ``einsum`` as the reference's batched einsums over every slot
+    (training's route: the kernel has no backward).
 
     GShard-style grouped dispatch: each assignment is ranked within its
     (group, expert) against a per-group capacity C; a rank >= C drops
@@ -158,10 +162,15 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor,
                     xg.repeat_interleave(k, dim=1).reshape(G * A, d))
     h = buf[:E * GC].view(E, GC, d)
 
-    # --- grouped expert GEMMs (kernel K2 on CUDA) ---
-    g_ = F.silu(kops.grouped_matmul(h, p.w_gate, rows))
-    u = kops.grouped_matmul(h, p.w_up, rows)
-    y_e = kops.grouped_matmul(g_ * u, p.w_down, rows)        # (E, GC, d)
+    # --- grouped expert GEMMs (kernel K2 on CUDA, or einsums) ---
+    if einsum:
+        g_ = F.silu(torch.einsum("ecd,edf->ecf", h, p.w_gate))
+        u = torch.einsum("ecd,edf->ecf", h, p.w_up)
+        y_e = torch.einsum("ecf,efd->ecd", g_ * u, p.w_down)
+    else:
+        g_ = F.silu(kops.grouped_matmul(h, p.w_gate, rows))
+        u = kops.grouped_matmul(h, p.w_up, rows)
+        y_e = kops.grouped_matmul(g_ * u, p.w_down, rows)    # (E, GC, d)
 
     # --- combine: gather + gate-weighted sum over the k slots ---
     y_tok = y_e.reshape(E * GC, d).index_select(

@@ -15,7 +15,12 @@ set) applied after every ``hybrid_attn_every``-th layer; each
 application has its own KV cache, (n_attn, B, S_max, n_kv, hd) stacked.
 Its prefill attention runs the flash-attention kernel (through
 ``layers.attention_apply``), its decode the masked attention over the
-cache.
+cache; training passes ``use_flash`` for the reference's routes.
+
+Both forwards return (logits, state, aux_loss) as the reference's do;
+the aux loss is 0 (no MoE here). With ``remat`` (training) each xLSTM
+segment or Zamba2 layer runs under ``torch.utils.checkpoint``, where
+the reference checkpoints its scan body.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -116,22 +122,39 @@ def _step_in_place(apply, p_l, cfg, x, state, kind, idx, decode):
     return x
 
 
-def xlstm_forward(
-    cfg: ModelConfig, p: XLSTM, tokens: torch.Tensor,
-    state: Optional[State] = None, decode: bool = False,
-) -> Tuple[torch.Tensor, Optional[State]]:
-    """Returns (logits, state); the state is updated in place."""
-    x = p.embed[tokens]
-    for (kind, r, j), blk in zip(p.slots, p.blocks):
+def _xlstm_segment(cfg: ModelConfig, p: XLSTM, seg: int, x: torch.Tensor,
+                   state: Optional[State], decode: bool) -> torch.Tensor:
+    """The blocks of pattern segment ``seg`` (one rep of the reference's
+    outer scan)."""
+    n = sum(parse_xlstm_pattern(cfg)[:2])
+    for i in range(seg * n, (seg + 1) * n):
+        (kind, r, j), blk = p.slots[i], p.blocks[i]
         apply = ssm.mlstm_apply if kind == "mlstm" else ssm.slstm_apply
         if state is None:
             x, _ = apply(blk, cfg, x, None, False)
         else:
             x = _step_in_place(apply, blk, cfg, x, state, kind, (r, j),
                                decode)
+    return x
+
+
+def xlstm_forward(
+    cfg: ModelConfig, p: XLSTM, tokens: torch.Tensor,
+    state: Optional[State] = None, decode: bool = False,
+    remat: bool = False,
+) -> Tuple[torch.Tensor, Optional[State], torch.Tensor]:
+    """Returns (logits, state, aux_loss); the state is updated in place."""
+    x = p.embed[tokens]
+    for seg in range(parse_xlstm_pattern(cfg)[2]):
+        if remat and state is None:
+            x = checkpoint(_xlstm_segment, cfg, p, seg, x, None, False,
+                           use_reentrant=False)
+        else:
+            x = _xlstm_segment(cfg, p, seg, x, state, decode)
     x = L.rmsnorm(p.final_norm, x, cfg.norm_eps)
     w = p.embed.t() if cfg.tie_embeddings else p.lm_head
-    return x @ w.to(x.dtype), state
+    return (x @ w.to(x.dtype), state,
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 # ======================================================================
@@ -191,24 +214,45 @@ def zamba2_state(cfg: ModelConfig, batch: int, max_seq: int,
 
 def _shared_block(cfg: ModelConfig, p: Zamba2, x: torch.Tensor,
                   positions: torch.Tensor, cache: Optional[L.Cache],
-                  cache_index: Optional[int]) -> torch.Tensor:
+                  cache_index: Optional[int],
+                  use_flash: Optional[bool]) -> torch.Tensor:
     h = L.rmsnorm(p.shared_attn_norm, x, cfg.norm_eps)
     attn_out, _ = L.attention_apply(p.shared_attn, cfg, h, positions,
                                     cache=cache, cache_index=cache_index,
-                                    causal=True)
+                                    causal=True, use_flash=use_flash)
     x = x + attn_out
     h = L.rmsnorm(p.shared_mlp_norm, x, cfg.norm_eps)
     return x + L.mlp_apply(p.shared_mlp, cfg, h)
 
 
+def _zamba2_layer(cfg: ModelConfig, p: Zamba2, i: int, x: torch.Tensor,
+                  positions: torch.Tensor, state: Optional[State],
+                  cache_index: Optional[int], decode: bool,
+                  use_flash: Optional[bool]) -> torch.Tensor:
+    """Mamba2 layer ``i``, then the shared block if it follows it."""
+    every = cfg.hybrid_attn_every
+    if state is None:
+        x, _ = ssm.mamba2_apply(p.mamba[i], cfg, x)
+    else:
+        x = _step_in_place(ssm.mamba2_apply, p.mamba[i], cfg, x, state,
+                           "mamba", i, decode)
+    if every and (i + 1) % every == 0:
+        a = (i + 1) // every - 1
+        cache = None if state is None else (state["kv_k"][a],
+                                            state["kv_v"][a])
+        x = _shared_block(cfg, p, x, positions, cache, cache_index,
+                          use_flash)
+    return x
+
+
 def zamba2_forward(
     cfg: ModelConfig, p: Zamba2, tokens: torch.Tensor,
     state: Optional[State] = None, cache_index: Optional[int] = None,
-    decode: bool = False,
-) -> Tuple[torch.Tensor, Optional[State]]:
-    """Returns (logits, state); the state (Mamba2 states and the shared
-    block's KV caches) is updated in place."""
-    every = cfg.hybrid_attn_every
+    decode: bool = False, remat: bool = False,
+    use_flash: Optional[bool] = None,
+) -> Tuple[torch.Tensor, Optional[State], torch.Tensor]:
+    """Returns (logits, state, aux_loss); the state (Mamba2 states and
+    the shared block's KV caches) is updated in place."""
     x = p.embed[tokens]
     B, S = x.shape[0], x.shape[1]
     if cache_index is not None and decode:
@@ -217,16 +261,13 @@ def zamba2_forward(
     else:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None, :].expand(B, S)
-    for i, blk in enumerate(p.mamba):
-        if state is None:
-            x, _ = ssm.mamba2_apply(blk, cfg, x)
+    for i in range(len(p.mamba)):
+        args = (cfg, p, i, x, positions, state, cache_index, decode,
+                use_flash)
+        if remat and state is None:
+            x = checkpoint(_zamba2_layer, *args, use_reentrant=False)
         else:
-            x = _step_in_place(ssm.mamba2_apply, blk, cfg, x, state,
-                               "mamba", i, decode)
-        if every and (i + 1) % every == 0:
-            a = (i + 1) // every - 1
-            cache = None if state is None else (state["kv_k"][a],
-                                                state["kv_v"][a])
-            x = _shared_block(cfg, p, x, positions, cache, cache_index)
+            x = _zamba2_layer(*args)
     x = L.rmsnorm(p.final_norm, x, cfg.norm_eps)
-    return x @ p.lm_head.to(x.dtype), state
+    return (x @ p.lm_head.to(x.dtype), state,
+            torch.zeros((), dtype=torch.float32, device=x.device))

@@ -2,7 +2,9 @@
 
 Port of the reference package's ``models/transformer.py``. The
 reference stacks layer params on a leading n_layers axis and scans over
-them; the port keeps one ``Block`` module per layer and loops.
+them; the port keeps one ``Block`` module per layer and loops. With
+``remat`` (training) each layer runs under ``torch.utils.checkpoint``,
+where the reference wraps its scan body in ``jax.checkpoint``.
 
 VLM: precomputed patch embeddings (the frontend is a stub) are
 prepended to the text embeddings. Audio: K codebook streams are
@@ -14,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -105,20 +108,20 @@ def _unembed(p: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _layer_apply(cfg: ModelConfig, p_l: Block, x: torch.Tensor,
                  positions: torch.Tensor, cache_l: Optional[Cache],
-                 cache_index: Optional[int]) -> torch.Tensor:
+                 cache_index: Optional[int], use_flash: Optional[bool]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer: (x, its MoE load-balancing loss, or None for an MLP)."""
     h = L.rmsnorm(p_l.attn_norm, x, cfg.norm_eps)
     attn_out, _ = L.attention_apply(
         p_l.attn, cfg, h, positions, cache=cache_l,
-        cache_index=cache_index, causal=True)
+        cache_index=cache_index, causal=True, use_flash=use_flash)
     x = x + attn_out
     h = L.rmsnorm(p_l.mlp_norm, x, cfg.norm_eps)
     if cfg.family == "moe":
-        # serving drops the load-balancing loss; training will add it
-        # to forward's return
-        out, _ = moe_apply(p_l.moe, cfg, h)
+        out, aux = moe_apply(p_l.moe, cfg, h, einsum=use_flash is not None)
     else:
-        out = L.mlp_apply(p_l.mlp, cfg, h)
-    return x + out
+        out, aux = L.mlp_apply(p_l.mlp, cfg, h), None
+    return x + out, aux
 
 
 # ----------------------------------------------------------------------
@@ -130,10 +133,16 @@ def forward(
     cache_index: Optional[int] = None,
     patch_embeds: Optional[torch.Tensor] = None,
     last_only: bool = False,
-) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Shared trunk. Returns (logits, cache); the cache is written in
-    place and returned. A vlm's ``patch_embeds`` (B, n_patches, d) take
-    the first positions."""
+    remat: bool = False,
+    use_flash: Optional[bool] = None,
+) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
+    """Shared trunk. Returns (logits, cache, aux_loss): the cache is
+    written in place and returned, aux_loss sums the MoE layers'
+    load-balancing losses (0 for the other families). A vlm's
+    ``patch_embeds`` (B, n_patches, d) take the first positions.
+    ``use_flash`` None takes the serving routes (kernels K1 and K2);
+    False or True the reference's training routes (see
+    ``layers.attention_apply``; the experts as einsums)."""
     x = _embed_tokens(p, cfg, tokens)
     if cfg.family == "vlm" and patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
@@ -144,15 +153,22 @@ def forward(
     else:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None, :].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p_l in enumerate(p.layers):
         cache_l = None if cache is None else (cache[0][i], cache[1][i])
-        x = _layer_apply(cfg, p_l, x, positions, cache_l, cache_index)
+        args = (cfg, p_l, x, positions, cache_l, cache_index, use_flash)
+        if remat:
+            x, aux_l = checkpoint(_layer_apply, *args, use_reentrant=False)
+        else:
+            x, aux_l = _layer_apply(*args)
+        if aux_l is not None:
+            aux = aux + aux_l
     if last_only:
         # serving prefill wants next-token logits only: slicing BEFORE
         # the unembed avoids materializing (B, S, V) logits.
         x = x[:, -1:]
     x = L.rmsnorm(p.final_norm, x, cfg.norm_eps)
-    return _unembed(p, cfg, x), cache
+    return _unembed(p, cfg, x), cache, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,

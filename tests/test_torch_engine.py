@@ -207,18 +207,37 @@ def test_entry_points_default_to_cuda():
 
 def test_port_imports_neither_jax_nor_reference():
     """A fresh interpreter that imports the port, serves on the CPU,
-    compiles two workloads and runs the fluid simulator on the CPU has
-    loaded no JAX and nothing of the reference package."""
+    compiles two workloads, runs the fluid simulator and the serving
+    control plane, and takes a training step with a checkpoint on the
+    CPU has loaded no JAX, no msgpack and nothing of the reference
+    package."""
     code = textwrap.dedent("""
         import sys
+        import tempfile
         import numpy as np
         import repro_torch
+        import repro_torch.checkpoint
         import repro_torch.core
         import repro_torch.npu
+        import repro_torch.serve.session
+        import repro_torch.serve.vserve
+        import repro_torch.train.loop
         from repro_torch import ServeEngine, SMOKES
         from repro_torch.core import compile_neuisa
         from repro_torch.core.sim_torch import pack_pair, simulate_pair
         from repro_torch.npu.workloads import get_workload
+        from repro_torch.serve import MultiTenantServer
+        from repro_torch.train import TrainConfig, train
+        with tempfile.TemporaryDirectory() as d:
+            out = train(SMOKES["qwen2-0.5b"],
+                        TrainConfig(steps=1, batch=1, seq=8, device="cpu",
+                                    ckpt_dir=d), log_fn=lambda *_: None)
+            assert np.isfinite(out["final_loss"])
+            assert repro_torch.checkpoint.checkpointer.list_checkpoints(d) == [1]
+        srv = MultiTenantServer(policy="neu10")
+        srv.register("a", get_workload("MNIST"), eu_budget=4)
+        _, reports = srv.simulate(n_requests=2)
+        assert reports[0].requests_done >= 2
         for arch, cfg in SMOKES.items():
             shape = (1, cfg.n_codebooks, 8) if cfg.family == "audio" else (1, 8)
             res = ServeEngine(cfg, max_seq=32, device="cpu").generate(
@@ -229,8 +248,8 @@ def test_port_imports_neither_jax_nor_reference():
                             2, device="cpu")
         assert float(out["makespan"]) > 0 and int(out["events"]) > 0
         bad = sorted(m for m in sys.modules
-                     if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-                     or m == "repro" or m.startswith("repro."))
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro",
+                                            "msgpack"))
         assert not bad, bad
         print("clean")
     """)
@@ -242,7 +261,8 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_port_sources_import_no_jax_or_reference():
-    """No source file of the port (nor chip_smoke.py) imports them."""
+    """No source file of the port (nor chip_smoke.py) imports them, nor
+    msgpack (the port's checkpoints use their own codec)."""
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
@@ -251,7 +271,8 @@ def test_port_sources_import_no_jax_or_reference():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1]
-                assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                assert mod.split(".")[0] not in ("jax", "jaxlib", "repro",
+                                                 "msgpack"), \
                     f"{f.name}: {s}"
 
 

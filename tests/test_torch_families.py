@@ -119,9 +119,9 @@ def test_stack_forward_without_state_matches_reference(arch):
     toks = _tokens(arch, 4, 2, 37)
     name = {"xlstm-350m": "xlstm_forward", "zamba2-7b": "zamba2_forward"}[arch]
     want, _, _ = getattr(j_stacks, name)(J_SMOKES[arch], jp, jnp.asarray(toks))
-    got, st = getattr(stacks, name)(SMOKES[arch], tp,
-                                    torch.from_numpy(toks).long())
-    assert st is None
+    got, st, aux = getattr(stacks, name)(SMOKES[arch], tp,
+                                         torch.from_numpy(toks).long())
+    assert st is None and float(aux) == 0.0
     _close(got, want)
 
 

@@ -352,3 +352,45 @@ def test_zamba2_engine_card_matches_cpu(hopper):
     assert fa.launches == before + cfg.n_layers // cfg.hybrid_attn_every
     b = cpu.generate(prompt, n_new=8)
     np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def _train(cfg, device, **kw):
+    from repro_torch.train import TrainConfig, train
+
+    tc = dict(steps=3, batch=2, seq=64, peak_lr=1e-3, warmup=1,
+              log_every=100)
+    tc.update(kw)
+    return train(cfg, TrainConfig(device=device, **tc),
+                 log_fn=lambda *_: None)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen2-moe-a2.7b"])
+def test_train_step_card_matches_cpu(hopper, arch):
+    """Three training steps on the card match the CPU path from the same
+    weights (drawn from a CPU generator), with no K1 or K2 launch: the
+    training routes are the reference's masked attention and einsum
+    experts. At 1e-5: chip_smoke.py's full-width 2-layer run measures
+    8.0e-8 and holds it to 1e-6."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = fa.launches, gm.launches
+        card = _train(SMOKES[arch], "cuda")
+        assert (fa.launches, gm.launches) == before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = _train(SMOKES[arch], "cpu")
+    np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=1e-5)
+    assert card["state"]["params"].embed.device.type == "cuda"
+
+
+def test_train_resume_on_card_is_exact(hopper, tmp_path):
+    """train(6) == train(3) + checkpoint + resume(3) on the card, to the
+    reference's rtol 1e-5."""
+    cfg = SMOKES["qwen2-0.5b"]
+    full = _train(cfg, "cuda", steps=6)
+    d = str(tmp_path / "ck")
+    _train(cfg, "cuda", steps=3, ckpt_dir=d, ckpt_every=3)
+    resumed = _train(cfg, "cuda", steps=6, ckpt_dir=d, ckpt_every=3)
+    np.testing.assert_allclose(full["losses"][3:], resumed["losses"],
+                               rtol=1e-5)
