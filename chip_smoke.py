@@ -48,23 +48,33 @@ Run from the repository root, with nothing else on the command line:
    6·N·T and 8·N·T FLOP bounds and a ``torch.profiler`` trace of one more
    step; then, cut to 2 layers, holds 3 steps on the card to 3 on the
    CPU from the same weights and 6 steps to 3 + checkpoint + resume + 3.
-8. Control plane: the serving session (the NPU simulated on the host):
+8. Mesh: the distribution layer. (a) A world-size-1 nccl group and a
+   (1, 1) (`data`, `model`) mesh; full-width qwen2-0.5b from the
+   training phase's CPU-generator weights, placed by ``reshard_state``
+   under the sharding rules, takes 3 steps at 8 x 256 tokens on the
+   masked-attention route and 3 on "cp"; each loss is held to the plain
+   step from the same weights on the card (``MESH_RTOL``), with no K1 or
+   K2 launch; prints ms a step beside the plain step's and peak memory.
+   (b) The dry run, host only: ``analyze_cell`` on
+   ``MESH_DRYRUN_CELLS`` at full width on a fake 16x16 mesh, every row
+   ok and under the card's memory per device.
+9. Control plane: the serving session (the NPU simulated on the host):
    qwen3-14b decode next to qwen2-0.5b prefill in closed loop under
    every policy, then open loop with a mid-run register, SLO autoscale
    and deregister; checks that every submitted request finished and
    that the autoscaler grew the budget.
-9. Fleet sweep: the port's fluid fleet simulator
-   (``repro_torch.core.sim_torch``, no kernel of its own) runs the whole
-   collocation grid on the card: all 78 pairs of the 12 workloads x the
-   49 EU splits of an 8 ME / 8 VE core x 5 HBM bandwidths, harvest off
-   and on (2 x 19110 cells, 4 requests each). The card is held to the
-   same call on the CPU (equal events in every cell, floats within
-   ``SIM_REL_TOL``) and, at the half split of three pairs, to the port's
-   discrete-event simulator in the bands of ``tests/test_sim_jax.py``;
-   prints the card's grid time (median and spread of 3 calls after a
-   warm-up), the CPU's, the discrete simulator's time per cell over the
-   nine paper pairs, the loop's iterations and the largest event count.
-10. Timing: times each kernel at each of its main-path shapes, its plain
+10. Fleet sweep: the port's fluid fleet simulator
+    (``repro_torch.core.sim_torch``, no kernel of its own) runs the whole
+    collocation grid on the card: all 78 pairs of the 12 workloads x the
+    49 EU splits of an 8 ME / 8 VE core x 5 HBM bandwidths, harvest off
+    and on (2 x 19110 cells, 4 requests each). The card is held to the
+    same call on the CPU (equal events in every cell, floats within
+    ``SIM_REL_TOL``) and, at the half split of three pairs, to the port's
+    discrete-event simulator in the bands of ``tests/test_sim_jax.py``;
+    prints the card's grid time (median and spread of 3 calls after a
+    warm-up), the CPU's, the discrete simulator's time per cell over the
+    nine paper pairs, the loop's iterations and the largest event count.
+11. Timing: times each kernel at each of its main-path shapes, its plain
     version and the PyTorch library call that computes the same
     function (with the kernels that call ran, from torch.profiler),
     beside the least time the card could take for the same work, and
@@ -92,6 +102,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -107,6 +118,13 @@ H100_BYTES_PER_S = 3.35e12   # HBM3
 TRAIN_CARD_CPU_RTOL = 1e-6
 # Resume: the reference's own bound (tests/test_train.py).
 RESUME_RTOL = 1e-5
+# The sharded training step on a one-rank mesh against the plain step
+# from the same weights on the card: the largest relative difference of
+# a loss over 3 steps.
+MESH_RTOL = 1e-6
+# The dry-run cells the mesh phase traces (16x16 fake mesh, full width).
+MESH_DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"),
+                     ("qwen2-moe-a2.7b", "decode_32k"))
 
 
 def check(ok: bool, what: str) -> None:
@@ -1006,6 +1024,122 @@ def train_phase(fa, gm, cfg) -> dict:
     return report
 
 
+def _mesh_steps(cfg, route, batches, sharded: bool) -> dict:
+    """``len(batches)`` training steps of full-width ``cfg`` on the card
+    from the CPU-generator weights of seed 0 (as the training phase's),
+    plain or, with ``sharded``, placed by ``reshard_state`` under
+    ``state_specs(param_specs(...))`` on a one-rank (`data`, `model`)
+    mesh of a world-size-1 nccl group (destroyed on the way out)."""
+    from repro_torch import build_model
+    from repro_torch.checkpoint.elastic import reshard_state
+    from repro_torch.distributed.sharding import (batch_specs, param_specs,
+                                                  placements, state_specs)
+    from repro_torch.launch.mesh import make_local_mesh, process_group
+    from repro_torch.launch.steps import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, use_flash=route)
+    step = make_train_step(model, peak_lr=1e-3, warmup=2)
+    losses, ms = [], []
+    with (process_group("nccl") if sharded else contextlib.nullcontext()):
+        state = init_train_state(model, torch.Generator().manual_seed(0),
+                                 device="cuda")
+        if sharded:
+            mesh = make_local_mesh()
+            state = reshard_state(state, mesh, state_specs(
+                cfg, mesh, param_specs(cfg, state["params"], mesh)))
+            bs = batch_specs(cfg, "train", mesh)
+            batches = [{k: distribute_tensor(v, mesh, placements(bs[k], mesh))
+                        for k, v in b.items()} for b in batches]
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            loss = m["loss"]
+            loss = float(loss.full_tensor() if sharded else loss)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(loss)
+        del state
+    out = {"losses": losses, "step_ms": ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(fa, gm, cfg) -> dict:
+    """The distribution layer. (a) Full-width ``cfg`` (qwen2-0.5b) takes
+    3 training steps at 8 x 256 tokens on a world-size-1 nccl group's
+    (1, 1) mesh, placed by the sharding rules, on the masked-attention
+    route and on "cp"; each loss is held to the plain step from the same
+    weights on the card within ``MESH_RTOL``, with no K1 or K2 launch.
+    (b) The dry run (host only: a fake 256-rank group, meta shards)
+    traces ``MESH_DRYRUN_CELLS`` at full width on the 16x16 mesh; every
+    row must be ok and its per-device argument bytes under the card's
+    memory. zamba2-7b x prefill_32k is left out: its 81 layers x 128 SSD
+    chunks take ~280 s of host time (over the phase's two minutes)."""
+    from repro_torch.configs import ARCHS, SHAPES_BY_NAME
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh, process_group
+
+    B, S, steps = 8, 256, 3
+    data = SyntheticLMData(cfg, B, S, seed=0)
+    batches = [{k: torch.from_numpy(v).to("cuda", torch.long)
+                for k, v in data.sample(i).items()} for i in range(steps)]
+    report = {"model": cfg.name, "batch": B, "seq": S, "steps": steps,
+              "rtol": MESH_RTOL, "routes": {}}
+    for route in (False, "cp"):
+        plain = _mesh_steps(cfg, route, batches, sharded=False)
+        fa.launches = gm.launches = 0
+        shard = _mesh_steps(cfg, route, batches, sharded=True)
+        launches = {"flash_attention": fa.launches,
+                    "grouped_matmul": gm.launches}
+        rel = max_rel(shard["losses"], plain["losses"])
+        name = "cp" if route else "masked"
+        report["routes"][name] = {
+            "plain": plain, "sharded": shard, "max_rel": rel,
+            "kernel_launches": launches,
+            "sharded_ms_median_after_first": float(
+                np.median(shard["step_ms"][1:])),
+            "plain_ms_median_after_first": float(
+                np.median(plain["step_ms"][1:]))}
+        check(launches == {"flash_attention": 0, "grouped_matmul": 0},
+              f"the sharded step launched a kernel: {launches}")
+        check(np.isfinite(shard["losses"]).all() and rel <= MESH_RTOL,
+              f"{name}: sharded losses {shard['losses']} vs plain "
+              f"{plain['losses']} (max rel {rel:.2e})")
+    print("mesh (a) sharded training step: " + json.dumps(report))
+
+    rows = []
+    t0 = time.perf_counter()
+    with process_group("fake", 256):
+        mesh = make_production_mesh()
+        for arch, shape in MESH_DRYRUN_CELLS:
+            rows.append(dryrun.analyze_cell(arch, ARCHS[arch],
+                                            SHAPES_BY_NAME[shape], mesh,
+                                            "single"))
+    total = torch.cuda.get_device_properties(0).total_memory
+    dry = {"host_only": True, "s": time.perf_counter() - t0,
+           "card_total_memory": total, "cells": [
+               {k: r[k] for k in ("arch", "shape", "status", "dominant",
+                                  "flops_per_device", "bytes_per_device",
+                                  "collective_bytes_per_device", "trace_s")}
+               | {"argument_bytes": r["mem"]["argument_bytes"],
+                  "temp_bytes": r["mem"]["temp_bytes"]} for r in rows]}
+    print("mesh (b) dry run, host only, a model of a 256-GPU cluster from "
+          "spec-sheet constants: " + json.dumps(dry))
+    for r in rows:
+        check(r["status"] == "ok", f"dry run {r['arch']} x {r['shape']}: "
+              f"{r['status']}")
+        check(r["mem"]["argument_bytes"] < total,
+              f"dry run {r['arch']} x {r['shape']}: "
+              f"{r['mem']['argument_bytes']} argument bytes per device")
+    return {"a": report, "b": dry}
+
+
 def control_plane_phase() -> dict:
     """The serving control plane (``serve.session``; the NPU simulated on
     the host): qwen3-14b decode next to qwen2-0.5b prefill in closed loop
@@ -1291,6 +1425,8 @@ def main() -> int:
         phase_done(f"{arch} engine and card vs CPU")
     train_phase(fa, gm, dense_cfg)
     phase_done("training")
+    mesh_phase(fa, gm, dense_cfg)
+    phase_done("mesh")
     control_plane_phase()
     phase_done("control plane")
     fleet_phase()

@@ -3,5 +3,7 @@ from repro_torch.checkpoint.checkpointer import (
     restore_checkpoint,
     save_checkpoint,
 )
+from repro_torch.checkpoint.elastic import reshard_state
 
-__all__ = ["Checkpointer", "save_checkpoint", "restore_checkpoint"]
+__all__ = ["Checkpointer", "save_checkpoint", "restore_checkpoint",
+           "reshard_state"]

@@ -16,7 +16,9 @@ blocks stacked on leading axes as the reference stacks them, then
 {"dtype": name, "shape": [...], "data": raw bytes}. A port training
 state (``launch.steps.init_train_state``) is restacked on save and
 unstacked on restore (``convert.state_to_jax`` / ``load_state_``); any
-other state is a nested dict of tensors.
+other state is a nested dict of tensors. A sharded training state is
+gathered whole on save, so every rank of its group calls ``save``; only
+rank 0 writes.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import threading
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.checkpoint.codec import pack_chunks, unpackb
@@ -82,8 +85,10 @@ def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
 
 
 def _write(ckpt_dir: str, step: int, arrays: Dict[str, torch.Tensor]) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return final                     # rank 0 writes for the group
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)

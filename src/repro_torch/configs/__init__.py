@@ -15,7 +15,17 @@ from repro_torch.configs import (
     xlstm_350m,
     zamba2_7b,
 )
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES_BY_NAME,
+    TRAIN_4K,
+    ModelConfig,
+    ShapeCell,
+    shape_applicable,
+)
 
 _MODULES = {
     "qwen2-moe-a2.7b": qwen2_moe_a2_7b,
@@ -42,4 +52,27 @@ def get_arch(arch_id: str, smoke: bool = False) -> ModelConfig:
     return table[arch_id]
 
 
-__all__ = ["ARCHS", "SMOKES", "ARCH_IDS", "ModelConfig", "get_arch"]
+def dryrun_cells():
+    """Yield every live (arch, shape) dry-run cell plus skip records."""
+    for arch_id, cfg in ARCHS.items():
+        for cell in ALL_SHAPES:
+            ok, why = shape_applicable(cfg, cell)
+            yield arch_id, cfg, cell, ok, why
+
+
+__all__ = [
+    "ARCHS",
+    "SMOKES",
+    "ARCH_IDS",
+    "ModelConfig",
+    "ShapeCell",
+    "ALL_SHAPES",
+    "SHAPES_BY_NAME",
+    "TRAIN_4K",
+    "PREFILL_32K",
+    "DECODE_32K",
+    "LONG_500K",
+    "get_arch",
+    "dryrun_cells",
+    "shape_applicable",
+]

@@ -3,7 +3,8 @@ that configs, models and serving share.
 
 Copied from the reference package's ``configs/base.py`` so that the
 port imports nothing of ``repro``; ``tests/test_torch_layers.py``
-holds the two copies field for field against each other.
+holds the two copies field for field against each other, and
+``tests/test_torch_sharding.py`` the dry run's shape cells.
 """
 from __future__ import annotations
 
@@ -196,3 +197,36 @@ def _xlstm_layer_params(cfg: ModelConfig, kind: str) -> int:
                 + up * d)
     # sLSTM: norm, w_up, w_gates, r_gates, out_norm, w_down
     return d + d * up + up * 4 * up + H * hd * 4 * hd + up + up * d
+
+
+# ----------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeCell:
+    """One (input-shape) cell from the assignment."""
+
+    name: str          # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeCell("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeCell("prefill_32k", "prefill", 32768, 32)
+DECODE_32K = ShapeCell("decode_32k", "decode", 32768, 128)
+LONG_500K = ShapeCell("long_500k", "decode", 524288, 1)
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, cell: ShapeCell) -> Tuple[bool, str]:
+    """Whether a shape cell runs for an arch, per the brief."""
+    if cell.name == "long_500k" and not cfg.supports_long_context:
+        return False, "long_500k skipped: pure full-attention arch (quadratic)"
+    return True, ""

@@ -22,6 +22,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -84,16 +85,22 @@ def load_(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     return module
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A sharded tensor gathered whole (a collective: every rank calls
+    it), any other as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _restack(module: nn.Module, named: Mapping[str, torch.Tensor]
              ) -> Dict[str, Any]:
     """The reference tree of per-parameter tensors ``named`` (keyed by
-    the module's parameter names): blocks stacked on their leading axes
-    in the reference's order, leaves as CPU tensors that share no memory
-    with ``named``."""
+    the module's parameter names; DTensors are gathered whole): blocks
+    stacked on their leading axes in the reference's order, leaves as
+    CPU tensors that share no memory with ``named``."""
     groups: Dict[str, Dict[Tuple[int, ...], torch.Tensor]] = {}
     for name, t in named.items():
         key, idx = _reference_key(module, name)
-        groups.setdefault(key, {})[idx] = t.detach()
+        groups.setdefault(key, {})[idx] = _whole(t.detach())
     tree: Dict[str, Any] = {}
     for key, parts in groups.items():
         if list(parts) == [()]:
@@ -127,7 +134,7 @@ def state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
     return {"params": params_to_jax(module),
             "m": _restack(module, state["m"]),
             "v": _restack(module, state["v"]),
-            "step": state["step"].detach().to("cpu", copy=True)}
+            "step": _whole(state["step"].detach()).to("cpu", copy=True)}
 
 
 def load_state_(state: Mapping[str, Any], tree: Mapping[str, Any]

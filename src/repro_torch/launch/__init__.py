@@ -1,2 +1,4 @@
-"""Step functions of the port (``steps``). The mesh and dry-run layer
-comes with the distribution slice."""
+"""The launch layer of the port: step functions (``steps``), meshes and
+process groups (``mesh``), the fake-mesh dry run (``dryrun``) with its
+per-device op counter (``op_analysis``) and roofline report
+(``roofline``)."""

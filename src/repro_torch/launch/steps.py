@@ -6,14 +6,22 @@ is {"params": the params module, "m": ..., "v": ..., "step": ...}: the
 module's parameters require grad, and the moments are dicts keyed by
 its parameter names. A train step updates the state in place and
 returns it.
+
+A sharded state (``checkpoint.elastic.reshard_state`` under
+``distributed.sharding.state_specs``) takes the same step: each
+gradient is brought to its parameter's placements (partial sums
+reduced), and the whole step, backward included (remat recomputes the
+forward there), runs under ``implicit_replication()``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import DeviceLike
+from repro_torch.distributed.sharding import replicate_plain
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import adamw_init, adamw_update
 from repro_torch.optim.schedule import wsd_schedule
@@ -36,13 +44,20 @@ def make_train_step(model: Model, peak_lr: float = 3e-4,
                     decay: int = 20_000):
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         named = dict(state["params"].named_parameters())
-        loss, metrics = model.loss(state["params"], batch)
-        grads = torch.autograd.grad(loss, list(named.values()),
-                                    materialize_grads=True)
-        lr = wsd_schedule(state["step"], peak_lr, warmup, stable, decay)
-        _, new_opt = adamw_update(
-            named, dict(zip(named, grads)),
-            {"m": state["m"], "v": state["v"], "step": state["step"]}, lr)
+        # the backward recomputes remat'ed layers, so it runs under
+        # implicit replication too
+        with replicate_plain(state["params"]):
+            loss, metrics = model.loss(state["params"], batch)
+            grads = torch.autograd.grad(loss, list(named.values()),
+                                        materialize_grads=True)
+            if isinstance(grads[0], DTensor):     # partial sums reduced
+                grads = [g.redistribute(p.device_mesh, p.placements)
+                         for p, g in zip(named.values(), grads)]
+            lr = wsd_schedule(state["step"], peak_lr, warmup, stable, decay)
+            _, new_opt = adamw_update(
+                named, dict(zip(named, grads)),
+                {"m": state["m"], "v": state["v"], "step": state["step"]},
+                lr)
         state.update(new_opt)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return state, dict(metrics, loss=loss.detach(), lr=lr)
@@ -50,8 +65,10 @@ def make_train_step(model: Model, peak_lr: float = 3e-4,
     return train_step
 
 
+# Serving steps run under no_grad, not inference_mode: a sharded cache
+# (DTensor) cannot take inference tensors in place.
 def make_prefill_step(model: Model):
-    @torch.inference_mode()
+    @torch.no_grad()
     def prefill_step(params, batch, cache):
         return model.prefill(params, batch, cache)
 
@@ -59,7 +76,7 @@ def make_prefill_step(model: Model):
 
 
 def make_decode_step(model: Model):
-    @torch.inference_mode()
+    @torch.no_grad()
     def decode_step(params, cache, batch):
         return model.decode_step(params, cache, batch)
 

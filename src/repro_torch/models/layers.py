@@ -17,13 +17,14 @@ Conventions
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import einsum, maybe_constrain, reshape
 from repro_torch.kernels import ops as kops
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
@@ -115,9 +116,9 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
         v = v + p.bv.to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    q = reshape(q, B, S, cfg.n_heads, cfg.d_head)
+    k = reshape(k, B, S, cfg.n_kv_heads, cfg.d_head)
+    v = reshape(v, B, S, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = rmsnorm(p.k_norm, k, cfg.norm_eps)
@@ -127,21 +128,29 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  chunk: int = 512) -> torch.Tensor:
+                  chunk: int = 512, context_parallel: bool = False
+                  ) -> torch.Tensor:
     """Causal attention as a loop over KV blocks of ``chunk`` keys with
     an online fp32 softmax: the reference's ``_sdpa_chunked``, training's
-    route with ``use_flash=True`` at S >= 256. q (B,S,H,hd), k/v
-    (B,S,Hkv,hd)."""
+    route with ``use_flash=True`` (or "cp") at S >= 256. q (B,S,H,hd),
+    k/v (B,S,Hkv,hd).
+
+    ``context_parallel``: shard the Q sequence over the `model` mesh
+    axis (K/V as they are), the reference's constraint: for archs whose
+    head count doesn't divide the TP axis, attention is otherwise
+    replicated per device. Identity unless q is a DTensor."""
+    if context_parallel:
+        q = maybe_constrain(q, None, "model", None, None)
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     g = H // Hkv
     scale = 1.0 / math.sqrt(hd)
     nc = -(-S // chunk)
     pad = nc * chunk - S
-    if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-    qg = q.reshape(B, S, Hkv, g, hd)
+    if pad:   # zeros after the last key (a cat: DTensor pads unreliably)
+        k = torch.cat([k, k.new_zeros((B, pad) + k.shape[2:])], dim=1)
+        v = torch.cat([v, v.new_zeros((B, pad) + v.shape[2:])], dim=1)
+    qg = reshape(q, B, S, Hkv, g, hd)
     q_pos = torch.arange(S, device=q.device)
     m_run = torch.full((B, S, Hkv, g), -1e30, dtype=torch.float32,
                        device=q.device)
@@ -151,7 +160,7 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for ci in range(nc):
         k_b = k[:, ci * chunk:(ci + 1) * chunk]
         v_b = v[:, ci * chunk:(ci + 1) * chunk]
-        s = torch.einsum("bskgh,btkh->bskgt", qg, k_b).float() * scale
+        s = einsum("bskgh,btkh->bskgt", qg, k_b).float() * scale
         k_pos = ci * chunk + torch.arange(chunk, device=q.device)
         causal = q_pos[:, None] >= k_pos[None, :]
         s = s.masked_fill(~causal[None, :, None, None, :], -1e30)
@@ -159,11 +168,11 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         alpha = torch.exp(m_run - m_new)
         p = torch.exp(s - m_new[..., None])
         l_run = l_run * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
+        acc = acc * alpha[..., None] + einsum(
             "bskgt,btkh->bskgh", p.to(v_b.dtype), v_b).float()
         m_run = m_new
     out = acc / l_run.clamp_min(1e-30)[..., None]
-    return out.to(q.dtype).reshape(B, S, H, hd)
+    return reshape(out.to(q.dtype), B, S, H, hd)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -173,14 +182,14 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, H, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
-    q = q.reshape(B, S, Hkv, g, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", q, k).float()
+    q = reshape(q, B, S, Hkv, g, hd)
+    scores = einsum("bskgh,btkh->bkgst", q, k).float()
     scores = scores / math.sqrt(hd)
     if mask is not None:
         scores = scores.masked_fill(~mask, -1e30)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", w, v)
-    return out.reshape(B, S, H, hd)
+    out = einsum("bkgst,btkh->bskgh", w, v)
+    return reshape(out, B, S, H, hd)
 
 
 def attention_apply(
@@ -191,7 +200,7 @@ def attention_apply(
     cache: Optional[Cache] = None,
     cache_index: Optional[int] = None,
     causal: bool = True,
-    use_flash: Optional[bool] = None,
+    use_flash: Any = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Full-sequence (train/prefill) or single-step (decode) attention.
 
@@ -201,8 +210,8 @@ def attention_apply(
     (serving) runs the flash-attention kernel on CUDA tensors (its plain
     version on CPU tensors) at every S; False and True are the
     reference's training routes, the masked ``_sdpa``, or with True
-    ``_sdpa_chunked`` at S >= 256. The kernel has no backward, so
-    training never takes it.
+    ``_sdpa_chunked`` at S >= 256 ("cp": context parallel). The kernel
+    has no backward, so training never takes it.
     """
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
@@ -221,7 +230,7 @@ def attention_apply(
         if causal and use_flash is None:
             out = kops.flash_attention(q, k, v, causal=True)
         elif causal and use_flash and S >= 256:
-            out = _sdpa_chunked(q, k, v)
+            out = _sdpa_chunked(q, k, v, context_parallel=use_flash == "cp")
         elif causal:
             mask = torch.ones((S, S), dtype=torch.bool,
                               device=x.device).tril()[None, None, None]
@@ -233,7 +242,7 @@ def attention_apply(
             k_cache[:, :S] = k.to(k_cache.dtype)
             v_cache[:, :S] = v.to(v_cache.dtype)
             new_cache = (k_cache, v_cache)
-    out = out.reshape(B, S, cfg.d_q) @ p.wo
+    out = reshape(out, B, S, cfg.d_q) @ p.wo
     return out, new_cache
 
 

@@ -29,8 +29,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import maybe_constrain, mesh_axes
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
@@ -88,10 +90,10 @@ def _grouped(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(G, B * S // G, d)
 
 
-def router_probs(p: MoE, xg: torch.Tensor) -> torch.Tensor:
+def router_probs(router: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
     """fp32 softmax over the experts of the router logits of ``xg``
-    (G, Tg, d): (G, Tg, E)."""
-    return torch.softmax((xg @ p.router).float(), dim=-1)
+    (G, Tg, d): (G, Tg, E), as ``moe_apply`` routes them."""
+    return torch.softmax((xg @ router).float(), dim=-1)
 
 
 def topk_gap(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> float:
@@ -99,8 +101,72 @@ def topk_gap(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> float:
     (k+1)-th router probability as ``moe_apply`` routes them. A gap near
     0 is a top-k choice that rounding can flip."""
     k = cfg.n_experts_per_tok
-    top = router_probs(p, _grouped(x)).topk(k + 1, dim=-1).values
+    top = router_probs(p.router, _grouped(x)).topk(k + 1, dim=-1).values
     return float((top[..., k - 1] - top[..., k]).min())
+
+
+def _dispatch(router: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor,
+              C: int):
+    """Route the groups ``xg`` (G, Tg, d) and scatter them into the
+    expert-major slot buffer. Returns (h (E, G*C, d), slot, keep,
+    gate_vals, probs, expert_idx, rows)."""
+    G, Tg, d = xg.shape
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    probs = router_probs(router, xg)                         # (G, Tg, E)
+    gate_vals, expert_idx = torch.topk(probs, k, dim=-1)     # (G, Tg, k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+    # --- dispatch: rank of each assignment within (group, expert) ---
+    # A stable sort keeps token order within an expert, so the rank (and
+    # with it which assignments drop) is the reference's.
+    A = Tg * k
+    flat_e = expert_idx.reshape(G, A)                        # (G, A)
+    sorted_e, order = torch.sort(flat_e, dim=1, stable=True)
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    ranks_sorted = torch.arange(A, device=xg.device) - first
+    ranks = torch.empty_like(ranks_sorted).scatter_(1, order, ranks_sorted)
+    keep = ranks < C
+    GC = G * C
+    # Pack each expert's kept rows as a prefix: counts by scatter-add,
+    # so nothing here waits on the device.
+    n_ge = torch.zeros(G, E, dtype=torch.int64, device=xg.device).scatter_add_(
+        1, flat_e, keep.long())                              # (G, E)
+    off = torch.cumsum(n_ge, dim=0) - n_ge
+    rows = n_ge.sum(dim=0).to(torch.int32)                   # (E,)
+    slot = torch.where(keep, flat_e * GC + off.gather(1, flat_e) + ranks,
+                       E * GC)
+
+    # Expert-major slot buffer; its last row takes every dropped
+    # assignment and is never read.
+    buf = xg.new_zeros(E * GC + 1, d)
+    buf.index_copy_(0, slot.reshape(-1),
+                    xg.repeat_interleave(k, dim=1).reshape(G * A, d))
+    h = buf[:E * GC].view(E, GC, d)
+    return h, slot, keep, gate_vals, probs, expert_idx, rows
+
+
+def _balance(probs: torch.Tensor, expert_idx: torch.Tensor, E: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Switch-style load balancing's two means over the tokens: the
+    first choice's density and the router probability, each (E,)."""
+    first_choice = expert_idx[..., 0].reshape(-1)
+    density = torch.zeros(E, dtype=torch.float32,
+                          device=probs.device).index_add_(
+        0, first_choice, torch.ones_like(first_choice, dtype=torch.float32)
+    ) / first_choice.numel()
+    return density, probs.mean(dim=(0, 1))
+
+
+def _combine(y_e: torch.Tensor, slot, keep, gate_vals, x_dtype
+             ) -> torch.Tensor:
+    """Gather + gate-weighted sum over the k slots: (G, Tg, d)."""
+    E, GC, d = y_e.shape
+    G, Tg, k = gate_vals.shape
+    y_tok = y_e.reshape(E * GC, d).index_select(
+        0, slot.clamp(max=E * GC - 1).reshape(-1))
+    y_tok = torch.where(keep.reshape(-1, 1), y_tok, 0).reshape(G, Tg, k, d)
+    gates = gate_vals.to(x_dtype)[..., None]                 # (G, Tg, k, 1)
+    return (y_tok * gates).sum(dim=2)
 
 
 def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor,
@@ -114,71 +180,97 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor,
 
     GShard-style grouped dispatch: each assignment is ranked within its
     (group, expert) against a per-group capacity C; a rank >= C drops
-    the assignment. The reference pins the dispatch buffers' group axis
-    to the data-parallel mesh axes (``maybe_constrain``); one card has
-    no mesh, so the port has no counterpart of that call.
+    the assignment. The reference pins the dispatch buffer's group axis
+    to the data-parallel mesh axes (``maybe_constrain``, identity on a
+    plain tensor); here the slot axis (G*C) carries the groups.
+
+    A DTensor ``x`` (sharded params) takes ``_moe_apply_sharded``: the
+    routing runs on each device's own groups, the experts as einsums on
+    DTensors.
     """
     B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.n_experts_per_tok
-    xg = _grouped(x)
-    G, Tg = xg.shape[:2]
-    C = capacity(cfg, Tg, capacity_factor)
-
-    probs = router_probs(p, xg)                              # (G, Tg, E)
-    gate_vals, expert_idx = torch.topk(probs, k, dim=-1)     # (G, Tg, k)
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
-
-    # Switch-style load-balancing loss; density from the first choice.
-    first_choice = expert_idx[..., 0].reshape(-1)
-    density = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
-        0, first_choice, torch.ones_like(first_choice, dtype=torch.float32)
-    ) / (G * Tg)
-    aux_loss = E * torch.sum(density * probs.mean(dim=(0, 1)))
-
-    # --- dispatch: rank of each assignment within (group, expert) ---
-    # A stable sort keeps token order within an expert, so the rank (and
-    # with it which assignments drop) is the reference's.
-    A = Tg * k
-    flat_e = expert_idx.reshape(G, A)                        # (G, A)
-    sorted_e, order = torch.sort(flat_e, dim=1, stable=True)
-    first = torch.searchsorted(sorted_e, sorted_e, side="left")
-    ranks_sorted = torch.arange(A, device=x.device) - first
-    ranks = torch.empty_like(ranks_sorted).scatter_(1, order, ranks_sorted)
-    keep = ranks < C
-    GC = G * C
-    # Pack each expert's kept rows as a prefix: counts by scatter-add,
-    # so nothing here waits on the device.
-    n_ge = torch.zeros(G, E, dtype=torch.int64, device=x.device).scatter_add_(
-        1, flat_e, keep.long())                              # (G, E)
-    off = torch.cumsum(n_ge, dim=0) - n_ge
-    rows = n_ge.sum(dim=0).to(torch.int32)                   # (E,)
-    slot = torch.where(keep, flat_e * GC + off.gather(1, flat_e) + ranks,
-                       E * GC)
-
-    # Expert-major slot buffer; its last row takes every dropped
-    # assignment and is never read.
-    buf = x.new_zeros(E * GC + 1, d)
-    buf.index_copy_(0, slot.reshape(-1),
-                    xg.repeat_interleave(k, dim=1).reshape(G * A, d))
-    h = buf[:E * GC].view(E, GC, d)
+    E = cfg.n_experts
+    G = _n_groups(B)
+    if isinstance(x, DTensor):
+        return _moe_apply_sharded(p, cfg, x, G, capacity_factor)
+    xg = x.reshape(G, B * S // G, d)
+    C = capacity(cfg, xg.shape[1], capacity_factor)
+    h, slot, keep, gate_vals, probs, expert_idx, rows = _dispatch(
+        p.router, cfg, xg, C)
+    density, mean_prob = _balance(probs, expert_idx, E)
+    aux_loss = E * torch.sum(density * mean_prob)
+    h = maybe_constrain(h, None, ("pod", "data"), None)
 
     # --- grouped expert GEMMs (kernel K2 on CUDA, or einsums) ---
     if einsum:
-        g_ = F.silu(torch.einsum("ecd,edf->ecf", h, p.w_gate))
-        u = torch.einsum("ecd,edf->ecf", h, p.w_up)
-        y_e = torch.einsum("ecf,efd->ecd", g_ * u, p.w_down)
+        y_e = _experts_einsum(p, h)
     else:
         g_ = F.silu(kops.grouped_matmul(h, p.w_gate, rows))
         u = kops.grouped_matmul(h, p.w_up, rows)
         y_e = kops.grouped_matmul(g_ * u, p.w_down, rows)    # (E, GC, d)
+    y_e = maybe_constrain(y_e, None, ("pod", "data"), None)
 
-    # --- combine: gather + gate-weighted sum over the k slots ---
-    y_tok = y_e.reshape(E * GC, d).index_select(
-        0, slot.clamp(max=E * GC - 1).reshape(-1))
-    y_tok = torch.where(keep.reshape(-1, 1), y_tok, 0).reshape(G, Tg, k, d)
-    gates = gate_vals.to(x.dtype)[..., None]                 # (G, Tg, k, 1)
-    y = (y_tok * gates).sum(dim=2).reshape(B, S, d)
+    y = _combine(y_e, slot, keep, gate_vals, x.dtype).reshape(B, S, d)
+    if p.shared is not None:
+        y = y + L.mlp_apply(p.shared, cfg.replace(mlp_gated=True), x)
+    return y, aux_loss
 
+
+def _experts_einsum(p: MoE, h: torch.Tensor) -> torch.Tensor:
+    g_ = F.silu(torch.einsum("ecd,edf->ecf", h, p.w_gate))
+    u = torch.einsum("ecd,edf->ecf", h, p.w_up)
+    return torch.einsum("ecf,efd->ecd", g_ * u, p.w_down)
+
+
+def _moe_apply_sharded(p: MoE, cfg: ModelConfig, x: DTensor, G: int,
+                       capacity_factor: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply`` on a DTensor x: the routing groups align with the
+    batch shards over the data-parallel mesh dims (G is a power of two
+    that divides B, as is every such shard count that divides B), so
+    each device routes its own G / D groups, with the global C, as plain
+    tensors, exactly as the unsharded layer routes them. The slot
+    buffers become DTensors sharded on their slot axis over the same
+    dims (the reference's first ``maybe_constrain``), the experts run as
+    einsums on the sharded weights, and their outputs are gathered back
+    to those shards (the second). Gradients of what each device used
+    locally are partial sums over the data-parallel dims. The load
+    balancing loss averages its two means over the shards before their
+    product, as over the whole batch. Where the batch or the groups do
+    not divide, x is replicated and every device routes all G groups."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    mesh = x.device_mesh
+    names = mesh_axes(mesh)
+    dp = [i for i, axes in enumerate(names) if {"pod", "data"} & set(axes)]
+    D = math.prod(mesh.size(i) for i in dp)
+    if D == 1 or B % D or G % D:
+        dp, D = [], 1
+
+    def on_dp(local: Placement):
+        return [local if i in dp else Replicate() for i in range(len(names))]
+
+    partial_dp = on_dp(Partial())
+    x_l = x.redistribute(mesh, on_dp(Shard(0))).to_local(
+        grad_placements=on_dp(Shard(0)))
+    router = p.router.redistribute(mesh, on_dp(Replicate())).to_local(
+        grad_placements=partial_dp)
+    Gl = G // D
+    xg = x_l.reshape(Gl, B * S // G, d)
+    C = capacity(cfg, xg.shape[1], capacity_factor)
+    h, slot, keep, gate_vals, probs, expert_idx, _ = _dispatch(
+        router, cfg, xg, C)
+    density, mean_prob = (
+        DTensor.from_local(t, mesh, on_dp(Partial("avg"))).redistribute(
+            mesh, on_dp(Replicate()))
+        for t in _balance(probs, expert_idx, E))
+    aux_loss = E * torch.sum(density * mean_prob)
+
+    h = DTensor.from_local(h, mesh, on_dp(Shard(1)))
+    h = maybe_constrain(h, None, ("pod", "data"), None)
+    y_e = maybe_constrain(_experts_einsum(p, h), None, ("pod", "data"), None)
+    y = _combine(y_e.to_local(), slot, keep, gate_vals, x.dtype)
+    y = DTensor.from_local(y.reshape(B // D, S, d), mesh, on_dp(Shard(0)))
     if p.shared is not None:
         y = y + L.mlp_apply(p.shared, cfg.replace(mlp_gated=True), x)
     return y, aux_loss

@@ -21,7 +21,16 @@ Routes: serving runs causal attention through kernel K1 and the MoE
 experts through K2 whatever ``use_flash`` is. Training (``logits``,
 ``loss``) takes the reference's routes, which the kernels do not carry
 (they have no backward): ``use_flash=False`` the masked attention,
-``True`` the chunked one at S >= 256, and the experts as einsums.
+``True`` the chunked one at S >= 256, ``"cp"`` the chunked one with q
+constrained to sequence shards over the `model` mesh axis (context
+parallel; identity off a mesh), and the experts as einsums. A model
+built with ``serve_kernels=False`` serves on the same routes (the dry
+run's, whose meta tensors no kernel may be handed).
+
+Sharded params (DTensors, placed by ``distributed.sharding``) run the
+same code: the forward then runs under ``implicit_replication()``, so
+the plain tensors it makes (positions, masks, RoPE tables, scan states)
+join DTensor ops as replicated.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from torch import nn
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import pin_batch, replicate_plain
 from repro_torch.models import stacks, transformer
 
 Batch = Dict[str, Any]
@@ -69,13 +79,16 @@ class Model:
     ``loss`` are the training forward; ``init_cache``, ``prefill`` and
     ``decode_step`` serve; ``batch_shapes`` gives each step's inputs.
 
-    ``use_flash`` (False or True) and ``remat`` apply to training's
-    ``logits``/``loss`` only; "cp" (context parallel) and "pallas" (a
-    kernel with no backward) are refused there."""
+    ``use_flash`` (False, True or "cp") and ``remat`` apply to
+    training's ``logits``/``loss``; "pallas" (a kernel with no backward)
+    is refused there. ``serve_kernels=False`` makes ``prefill`` and
+    ``decode_step`` take the training routes (with ``use_flash``)
+    instead of the kernels."""
     cfg: ModelConfig
     use_flash: Any = False
     remat: bool = True
     prefill_last_only: bool = False
+    serve_kernels: bool = True
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device: DeviceLike = None) -> nn.Module:
@@ -93,24 +106,28 @@ class Model:
         """Full-sequence forward on the training routes: (logits,
         aux_loss)."""
         c, tokens = self.cfg, batch["tokens"]
-        if self.use_flash not in (False, True):
+        flash = self._train_route()
+        kind = stack_kind(c)
+        with replicate_plain(params):
+            if kind == "transformer":
+                lg, _, aux = transformer.forward(
+                    c, params, tokens, patch_embeds=batch.get("patch_embeds"),
+                    remat=self.remat, use_flash=flash)
+            elif kind == "xlstm":
+                lg, _, aux = stacks.xlstm_forward(c, params, tokens,
+                                                  remat=self.remat)
+            else:
+                lg, _, aux = stacks.zamba2_forward(c, params, tokens,
+                                                   remat=self.remat,
+                                                   use_flash=flash)
+        return lg, aux
+
+    def _train_route(self) -> Any:
+        if self.use_flash not in (False, True, "cp"):
             raise ValueError(
                 f"use_flash={self.use_flash!r} has no training route in the "
-                "port: 'cp' needs a device mesh, 'pallas' a backward kernel")
-        flash = bool(self.use_flash)
-        kind = stack_kind(c)
-        if kind == "transformer":
-            lg, _, aux = transformer.forward(
-                c, params, tokens, patch_embeds=batch.get("patch_embeds"),
-                remat=self.remat, use_flash=flash)
-        elif kind == "xlstm":
-            lg, _, aux = stacks.xlstm_forward(c, params, tokens,
-                                              remat=self.remat)
-        else:
-            lg, _, aux = stacks.zamba2_forward(c, params, tokens,
-                                               remat=self.remat,
-                                               use_flash=flash)
-        return lg, aux
+                "port: 'pallas' needs a backward kernel")
+        return self.use_flash
 
     def loss(self, params: nn.Module, batch: Batch
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -123,8 +140,12 @@ class Model:
             lg = lg[:, c.n_patches:]
         if c.family == "audio":
             targets = targets.movedim(1, 2)
-        ce = cross_entropy(lg, targets)
-        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+        # the loss gathers each target's logit along the vocab: sharded
+        # logits keep their batch shards and gather the vocab
+        lg = pin_batch(lg)
+        with replicate_plain(params):
+            ce = cross_entropy(lg, targets)
+            return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # ---------------- serving ----------------
     def init_cache(self, batch: int, max_seq: int, dtype=torch.float32,
@@ -144,18 +165,25 @@ class Model:
         which only the transformer stack reads, as in the reference."""
         c, tokens = self.cfg, batch["tokens"]
         kind = stack_kind(c)
-        if kind == "transformer":
-            lg, cache, _ = transformer.forward(
-                c, params, tokens, cache=cache,
-                patch_embeds=batch.get("patch_embeds"),
-                last_only=self.prefill_last_only)
-        elif kind == "xlstm":
-            lg, cache, _ = stacks.xlstm_forward(c, params, tokens,
-                                                state=cache)
-        else:
-            lg, cache, _ = stacks.zamba2_forward(c, params, tokens,
-                                                 state=cache)
+        route = self._serve_route()
+        with replicate_plain(params):
+            if kind == "transformer":
+                lg, cache, _ = transformer.forward(
+                    c, params, tokens, cache=cache,
+                    patch_embeds=batch.get("patch_embeds"),
+                    last_only=self.prefill_last_only, use_flash=route)
+            elif kind == "xlstm":
+                lg, cache, _ = stacks.xlstm_forward(c, params, tokens,
+                                                    state=cache)
+            else:
+                lg, cache, _ = stacks.zamba2_forward(c, params, tokens,
+                                                     state=cache,
+                                                     use_flash=route)
         return lg, cache
+
+    def _serve_route(self) -> Any:
+        """None (the kernels), or the training route."""
+        return None if self.serve_kernels else self._train_route()
 
     def decode_step(self, params: nn.Module, cache: Any, batch: Batch
                     ) -> Tuple[torch.Tensor, Any]:
@@ -164,16 +192,19 @@ class Model:
         c, tokens = self.cfg, batch["tokens"]
         idx = int(batch["cache_index"])
         kind = stack_kind(c)
-        if kind == "transformer":
-            lg, cache, _ = transformer.forward(c, params, tokens, cache=cache,
-                                               cache_index=idx)
-        elif kind == "xlstm":
-            lg, cache, _ = stacks.xlstm_forward(c, params, tokens,
-                                                state=cache, decode=True)
-        else:
-            lg, cache, _ = stacks.zamba2_forward(c, params, tokens,
-                                                 state=cache,
-                                                 cache_index=idx, decode=True)
+        route = self._serve_route()
+        with replicate_plain(params):
+            if kind == "transformer":
+                lg, cache, _ = transformer.forward(
+                    c, params, tokens, cache=cache, cache_index=idx,
+                    use_flash=route)
+            elif kind == "xlstm":
+                lg, cache, _ = stacks.xlstm_forward(c, params, tokens,
+                                                    state=cache, decode=True)
+            else:
+                lg, cache, _ = stacks.zamba2_forward(
+                    c, params, tokens, state=cache, cache_index=idx,
+                    decode=True, use_flash=route)
         return lg, cache
 
     # ---------------- shape builders (data pipeline) ----------------
@@ -205,6 +236,8 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, use_flash: Any = False, remat: bool = True,
-                prefill_last_only: bool = False) -> Model:
+                prefill_last_only: bool = False,
+                serve_kernels: bool = True) -> Model:
     return Model(cfg=cfg, use_flash=use_flash, remat=remat,
-                 prefill_last_only=prefill_last_only)
+                 prefill_last_only=prefill_last_only,
+                 serve_kernels=serve_kernels)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import reshape
 from repro_torch.models import layers as L
 
 State = Dict[str, torch.Tensor]
@@ -60,7 +61,7 @@ def ssd_chunked(
     nc = (s + pad) // Lc
 
     def to_chunks(t):  # (b, sp, ...) -> (b, nc, L, ...)
-        return t.reshape(b, nc, Lc, *t.shape[2:])
+        return reshape(t, b, nc, Lc, *t.shape[2:])
 
     xc = to_chunks(x).float()
     a_cs = to_chunks(a).float().cumsum(dim=2)            # (b,nc,L,h)
@@ -89,7 +90,7 @@ def ssd_chunked(
                              Bcc, decay_out[..., None] * xcc)
         state = asum.exp()[..., None, None] * state + S_loc
         ys.append(y_inter + y_intra)
-    y = torch.stack(ys, dim=1).reshape(b, nc * Lc, h, p)[:, :s]
+    y = reshape(torch.stack(ys, dim=1), b, nc * Lc, h, p)[:, :s]
     return y.to(x.dtype), state
 
 
@@ -196,9 +197,9 @@ def mamba2_apply(
                                  None if state is None else state["conv"])
     bc, new_conv_bc = _causal_conv(p.conv_w_bc, p.conv_b_bc, bc,
                                    None if state is None else state["conv_bc"])
-    x_ssm = x_c.reshape(b, s, nh, hd)
-    Bmat = bc[..., :st].reshape(b, s, 1, st)
-    Cmat = bc[..., st:].reshape(b, s, 1, st)
+    x_ssm = reshape(x_c, b, s, nh, hd)
+    Bmat = reshape(bc[..., :st], b, s, 1, st)
+    Cmat = reshape(bc[..., st:], b, s, 1, st)
     dt = F.softplus(dt_raw.float() + p.dt_bias)                  # (b,s,nh)
     a_log = dt * -torch.exp(p.A_log)
     x_in = x_ssm * dt.to(x_ssm.dtype)[..., None]
@@ -210,7 +211,7 @@ def mamba2_apply(
         h0 = None if state is None else state["ssm"]
         y, new_ssm = ssd_chunked(x_in, a_log, Bmat, Cmat, cfg.ssm_chunk, h0)
     y = y + x_ssm * p.D.to(x_ssm.dtype)[:, None]
-    y = y.reshape(b, s, d_in)
+    y = reshape(y, b, s, d_in)
     y = L.rmsnorm(p.gate_norm, y * F.silu(z), cfg.norm_eps)
     out = res + y @ p.out_proj
     new_state = None
@@ -270,9 +271,9 @@ def mlstm_apply(
     x = L.rmsnorm(p.norm, x, cfg.norm_eps)
     u = x @ p.w_u
     z = x @ p.w_z
-    q = (u @ p.wq).reshape(b, s, H, hd) / math.sqrt(hd)
-    k = (u @ p.wk).reshape(b, s, H, hd)
-    v = (u @ p.wv).reshape(b, s, H, hd)
+    q = reshape(u @ p.wq, b, s, H, hd) / math.sqrt(hd)
+    k = reshape(u @ p.wk, b, s, H, hd)
+    v = reshape(u @ p.wv, b, s, H, hd)
     gates = (u @ p.w_if).float()
     i_g = torch.sigmoid(gates[..., :H])                       # (b,s,H)
     f_g = torch.sigmoid(gates[..., H:]) * 0.999 + 1e-4
@@ -290,7 +291,7 @@ def mlstm_apply(
                                   min(cfg.ssm_chunk or 128, 128), h0)
     num, den = y_aug[..., :hd], y_aug[..., hd:]
     y = num / den.abs().clamp_min(1.0).to(num.dtype)
-    y = y.reshape(b, s, up)
+    y = reshape(y, b, s, up)
     y = L.rmsnorm(p.out_norm, y, cfg.norm_eps) * F.silu(z)
     out = res + y @ p.w_down
     new_state = {"C": newC} if (state is not None or decode) else None
@@ -333,8 +334,8 @@ def _slstm_cell(p: SLSTM, cfg: ModelConfig, xg: torch.Tensor,
     b = xg.shape[0]
     up = xg.shape[1] // 4
     hd = up // H
-    h_prev = st["h"].reshape(b, H, hd).to(p.r_gates.dtype)
-    rec = torch.einsum("bhd,hdk->bhk", h_prev, p.r_gates).reshape(b, 4 * up)
+    h_prev = reshape(st["h"], b, H, hd).to(p.r_gates.dtype)
+    rec = reshape(torch.einsum("bhd,hdk->bhk", h_prev, p.r_gates), b, 4 * up)
     z_t, i_t, f_t, o_t = (xg + rec).float().chunk(4, dim=-1)
     z_t = torch.tanh(z_t)
     i_t = torch.sigmoid(i_t)

@@ -31,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import embed, pin_batch
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 
@@ -144,7 +145,7 @@ def xlstm_forward(
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[State], torch.Tensor]:
     """Returns (logits, state, aux_loss); the state is updated in place."""
-    x = p.embed[tokens]
+    x = pin_batch(embed(p.embed, tokens))
     for seg in range(parse_xlstm_pattern(cfg)[2]):
         if remat and state is None:
             x = checkpoint(_xlstm_segment, cfg, p, seg, x, None, False,
@@ -253,7 +254,7 @@ def zamba2_forward(
 ) -> Tuple[torch.Tensor, Optional[State], torch.Tensor]:
     """Returns (logits, state, aux_loss); the state (Mamba2 states and
     the shared block's KV caches) is updated in place."""
-    x = p.embed[tokens]
+    x = pin_batch(embed(p.embed, tokens))
     B, S = x.shape[0], x.shape[1]
     if cache_index is not None and decode:
         positions = torch.full((B, 1), cache_index, dtype=torch.int32,

@@ -19,6 +19,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import embed, pin_batch, reshape
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoE, moe_apply
 
@@ -90,8 +91,9 @@ def _embed_tokens(p: Transformer, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
     if cfg.family == "audio":
         # tokens: (B, K, S) -> sum of per-codebook embeddings
-        return sum(p.embed[k][tokens[:, k]] for k in range(cfg.n_codebooks))
-    return p.embed[tokens]
+        return sum(embed(p.embed[k], tokens[:, k])
+                   for k in range(cfg.n_codebooks))
+    return embed(p.embed, tokens)
 
 
 def _unembed(p: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +101,7 @@ def _unembed(p: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     logits = x @ w.to(x.dtype)
     if cfg.family == "audio":
         B, S = x.shape[0], x.shape[1]
-        logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab_padded)
+        logits = reshape(logits, B, S, cfg.n_codebooks, cfg.vocab_padded)
     if cfg.vocab_padded != cfg.vocab_size:
         # padded slots never win softmax/sampling
         logits[..., cfg.vocab_size:] = -1e30
@@ -143,7 +145,7 @@ def forward(
     ``use_flash`` None takes the serving routes (kernels K1 and K2);
     False or True the reference's training routes (see
     ``layers.attention_apply``; the experts as einsums)."""
-    x = _embed_tokens(p, cfg, tokens)
+    x = pin_batch(_embed_tokens(p, cfg, tokens))
     if cfg.family == "vlm" and patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     B, S = x.shape[0], x.shape[1]

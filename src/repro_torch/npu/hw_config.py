@@ -3,9 +3,13 @@
 ``NPUCoreConfig`` mirrors the paper's Table II simulator config (a
 TPUv4-like core). Its fields are the *simulated* device's parameters,
 inputs to the cost model and the simulators; they are not a
-measurement of any chip, and nothing here describes the GPU the port
-runs on. Copied from the reference package's ``npu/hw_config.py``
-without the reference's TPU roofline constants.
+measurement of any chip. Copied from the reference package's
+``npu/hw_config.py`` without the reference's TPU roofline constants.
+
+``H100Roofline`` takes their place for the dry run
+(``launch/dryrun.py``): data-sheet constants of one NVIDIA H100 SXM5
+80GB in a cluster of 8-GPU nodes, the divisors of its roofline terms.
+They are a model of a 256- or 512-GPU cluster, not a measurement.
 """
 from __future__ import annotations
 
@@ -53,3 +57,25 @@ class NPUCoreConfig:
 
 
 DEFAULT_CORE = NPUCoreConfig()
+
+
+@dataclass(frozen=True)
+class H100Roofline:
+    """Roofline constants of one H100 SXM5 80GB in the dry run's model
+    of a cluster. Spec-sheet values, not measurements."""
+
+    # NVIDIA H100 data sheet, SXM5: dense bf16 tensor-core peak (no
+    # sparsity), at the 700 W power limit
+    peak_flops_bf16: float = 989.4e12
+    # the same data sheet: HBM3 bandwidth, 3.35 TB/s
+    hbm_bw: float = 3.35e12
+    # the same data sheet: 80 GB of HBM3 per GPU
+    hbm_per_chip: int = 80 * 10**9
+    # one 400 Gb/s InfiniBand NDR port per GPU (DGX H100 reference
+    # design), 50e9 B/s: every axis of the production meshes is 16 wide,
+    # so it spans two 8-GPU NVLink nodes and a ring is bounded by this
+    # inter-node hop
+    link_bw: float = 50e9
+
+
+H100 = H100Roofline()

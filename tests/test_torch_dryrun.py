@@ -1,0 +1,280 @@
+"""The port's dry run on the CPU: the per-device op counter
+(``launch/op_analysis.py``, the counterpart of the reference's
+``launch/hlo_analysis.py``), ``analyze_cell`` on the fake 16x16 and
+2x16x16 meshes, the CLI, and the copied ``roofline.py``.
+
+Tolerances:
+- counted FLOPs of a smoke dense prefill against the reference's
+  ``hlo_metrics`` of the same jitted prefill: 1e-9 relative (both count
+  2 * |result| * K of every matmul; measured equal);
+- per-device FLOPs on a fake 16x16 mesh: exactly 1/256 of the logical.
+"""
+import json
+import types
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+from repro.configs import SMOKES as J_SMOKES
+from repro.launch import roofline as j_roofline
+from repro.launch.hlo_analysis import hlo_metrics
+from repro.launch.steps import make_prefill_step as j_make_prefill_step
+from repro.models.registry import build_model as j_build_model
+from repro_torch.configs import SMOKES
+from repro_torch.configs.base import ShapeCell
+from repro_torch.convert import params_from_jax
+from repro_torch.distributed.sharding import P, param_specs
+from repro_torch.checkpoint.elastic import reshard_state
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import grouped_matmul as gm
+from repro_torch.kernels import ops as kops
+from repro_torch.launch import dryrun, roofline
+from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
+                                     process_group)
+from repro_torch.launch.op_analysis import COLLECTIVES, OpCounter
+from repro_torch.models.registry import build_model
+from repro_torch.npu.hw_config import H100
+
+# the reference's row keys (launch/dryrun.py), lower_s / compile_s aside
+ROW_KEYS = {"arch", "shape", "mesh", "opts", "status", "n_chips",
+            "flops_per_device", "bytes_per_device", "xla_cost_flops",
+            "xla_cost_bytes", "collective_bytes_per_device",
+            "compute_term_s", "memory_term_s", "collective_term_s",
+            "dominant", "model_flops_per_chip", "useful_flops_ratio",
+            "mem", "collectives"}
+MEM_KEYS = {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes"}
+FLOP_RTOL = 1e-9
+
+
+# ---- test_hlo_analysis.py's cases that carry over ----
+def test_loop_of_matmuls_is_counted_each_time():
+    """A Python loop of 10 matmuls is 10 matmuls (the reference's scan of
+    7 needed its trip count)."""
+    w = torch.ones(32, 32)
+
+    def f(x):
+        for _ in range(10):
+            x = x @ w
+        return x
+
+    x = torch.ones(32, 32)
+    with OpCounter() as c:
+        f(x)
+    m = c.metrics()
+    assert m["hlo_flops"] == 10 * 2 * 32 * 32 * 32
+    assert m["hlo_bytes"] == 10 * 32 * 32 * 4
+
+
+def test_collective_bytes_and_factors():
+    """An all-reduce of f32[8,8] weighs 2 x 256 B, an all-gather of its
+    16 shards 1 x 4096 B; the keys are the reference's."""
+    with process_group("fake", 256):
+        mesh = make_production_mesh()
+        a = torch.randn(8, 8)
+        with OpCounter() as c:
+            r = funcol.all_reduce(a, "sum", mesh["model"])
+            g = funcol.all_gather_single(a, 0, mesh["model"])
+            r, g = funcol.wait_tensor(r), funcol.wait_tensor(g)
+    m = c.metrics()
+    assert m["all-reduce_bytes"] == 512 and m["all-reduce_count"] == 1
+    assert m["all-gather_bytes"] == 16 * 256 and m["all-gather_count"] == 1
+    assert m["total_weighted_bytes"] == 512 + 4096
+    assert set(m) == ({f"{k}_bytes" for k in COLLECTIVES}
+                      | {f"{k}_count" for k in COLLECTIVES}
+                      | {"total_weighted_bytes", "hlo_flops", "hlo_bytes"})
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("where", ["fake", "meta"])
+def test_flops_are_per_device_not_logical(where):
+    """x (256, 4096, 896) batch-sharded over `data`, w column- and w2
+    row-parallel over `model`: each of 256 devices does 1/256 of the
+    logical FLOPs, and the row-parallel product's partial sums cost one
+    all-reduce of the local result."""
+    logical = 2 * 2 * 256 * 4096 * 896 * 4864
+    with process_group("fake", 256):
+        mesh = make_production_mesh()
+        ctx = FakeTensorMode() if where == "fake" else torch.device("meta")
+        with ctx:
+            x = distribute_tensor(torch.empty(256, 4096, 896), mesh,
+                                  [Shard(0), Replicate()])
+            w = distribute_tensor(torch.empty(896, 4864), mesh,
+                                  [Replicate(), Shard(1)])
+            w2 = distribute_tensor(torch.empty(4864, 896), mesh,
+                                   [Replicate(), Shard(0)])
+            with OpCounter() as c:
+                y = ((x @ w) @ w2).redistribute(mesh, [Shard(0), Replicate()])
+        assert tuple(y.to_local().shape) == (16, 4096, 896)
+    m = c.metrics()
+    assert m["hlo_flops"] == logical / 256
+    assert m["all-reduce_count"] == 1
+    assert m["all-reduce_bytes"] == 2 * 16 * 4096 * 896 * 4
+
+
+def test_peak_bytes_follow_frees():
+    with OpCounter() as c:
+        a = torch.ones(1000)            # 4000 B
+        b = a * 2                       # 4000 B
+        del a
+        d = b + 1                       # 4000 B, a freed
+    assert c.peak_bytes == 8000 and c.live_bytes == 8000
+    assert d.shape == b.shape
+
+
+# ---- against the reference's hlo_metrics ----
+def test_flops_match_the_reference_hlo():
+    """A smoke dense prefill, the same weights, on a one-rank mesh: the
+    port's counted FLOPs against ``hlo_metrics`` of the jitted reference
+    prefill."""
+    cfg, jcfg = SMOKES["qwen2-0.5b"], J_SMOKES["qwen2-0.5b"]
+    B, S = 2, 64
+    jm = j_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0), jnp.float32)
+    cache = jax.eval_shape(lambda: jm.init_cache(B, S, jnp.float32))
+    batch = {"tokens": jnp.zeros((B, S), jnp.int32)}
+    hlo = jax.jit(j_make_prefill_step(jm)).lower(
+        jp, batch, cache).compile().as_text()
+    ref = hlo_metrics(hlo)["hlo_flops"]
+
+    model = build_model(cfg, serve_kernels=False)
+    with process_group("gloo"):
+        mesh = make_local_mesh(device="cpu")
+        params = params_from_jax(cfg, jp, device="cpu")
+        params = reshard_state(params, mesh, param_specs(cfg, params, mesh))
+        tokens = distribute_tensor(torch.zeros(B, S, dtype=torch.int32),
+                                   mesh, [Shard(0), Replicate()])
+        c = model.init_cache(B, S, device="cpu")
+        c = reshard_state(c, mesh, (P(*[None] * 5),) * 2)
+        with OpCounter() as counter, torch.no_grad():
+            model.prefill(params, {"tokens": tokens}, c)
+    assert counter.flops == pytest.approx(ref, rel=FLOP_RTOL)
+
+
+# ---- analyze_cell end to end ----
+CELLS = [ShapeCell("train_s", "train", 64, 32),
+         ShapeCell("prefill_s", "prefill", 64, 32),
+         ShapeCell("decode_s", "decode", 64, 64)]
+
+
+@pytest.fixture
+def no_kernel(monkeypatch):
+    """Counts calls of the kernels' entry points (there must be none)."""
+    calls = []
+    for name in ("flash_attention", "grouped_matmul"):
+        real = getattr(kops, name)
+        monkeypatch.setattr(kops, name, lambda *a, _r=real, _n=name, **k:
+                            calls.append(_n) or _r(*a, **k))
+    fa.launches = gm.launches = 0
+    return calls
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=lambda c: c.kind)
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+def test_analyze_cell(cell, mesh_name, no_kernel):
+    cfg = SMOKES["qwen2-0.5b"]
+    world, multi = dryrun.MESHES[mesh_name]
+    with process_group("fake", world):
+        mesh = make_production_mesh(multi_pod=multi)
+        row = dryrun.analyze_cell("qwen2-0.5b", cfg, cell, mesh, mesh_name)
+    assert not dist.is_initialized()
+    assert no_kernel == [] and fa.launches == 0 and gm.launches == 0
+    assert set(row) == ROW_KEYS | {"trace_s"} and set(row["mem"]) == MEM_KEYS
+    assert row["status"] == "ok" and row["n_chips"] == world
+    n_active = cfg.active_param_count()
+    want = (6.0 if cell.kind == "train" else 2.0) * n_active * cell.tokens
+    assert row["model_flops_per_chip"] == want / world
+    assert row["flops_per_device"] > 0 and row["bytes_per_device"] > 0
+    assert row["compute_term_s"] == row["flops_per_device"] / H100.peak_flops_bf16
+    assert row["collective_term_s"] == (row["collective_bytes_per_device"]
+                                        / H100.link_bw)
+    # argument bytes: the local shards of everything passed in
+    B, S = cell.global_batch, cell.seq_len
+    dp = world // 16
+    params = sum(t.numel() * 2 for t in _smoke_params(cfg).values())
+    local = sum(n * 2 for n in _local_param_numels(cfg, mesh_name).values())
+    if cell.kind == "train":
+        tokens = 2 * (B // dp) * S * 4
+        state = local + 2 * 2 * local + 4    # params bf16, m and v fp32
+        assert row["mem"]["argument_bytes"] == tokens + state
+    else:
+        kv = 2 * cfg.n_layers * (B // dp) * S * cfg.n_kv_heads * cfg.d_head * 2
+        S_in = S if cell.kind == "prefill" else 1
+        extra = 4 if cell.kind == "decode" else 0
+        assert row["mem"]["argument_bytes"] == \
+            (B // dp) * S_in * 4 + extra + local + kv
+    assert local < params
+
+
+def _smoke_params(cfg):
+    with FakeTensorMode():
+        return dict(build_model(cfg).init(torch.Generator(), torch.bfloat16,
+                                          device="cpu").named_parameters())
+
+
+def _local_param_numels(cfg, mesh_name):
+    """Each parameter's elements on one device under the rules."""
+    shape = {"data": 16, "model": 16}
+    if mesh_name == "multi":
+        shape = {"pod": 2, **shape}
+    with FakeTensorMode():
+        p = build_model(cfg).init(torch.Generator(), torch.bfloat16,
+                                  device="cpu")
+    specs = param_specs(cfg, p, shape)
+    out = {}
+    for name, t in p.named_parameters():
+        n = t.numel()
+        for e in specs[name]:
+            for a in (e if isinstance(e, tuple) else (e,) if e else ()):
+                n //= shape[a]
+        out[name] = n
+    return out
+
+
+def test_cli_writes_one_ok_row(tmp_path, no_kernel):
+    """``python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape
+    train_4k --mesh single --out <tmp>``, in process: one ok row at full
+    width, resumable (a second run adds nothing)."""
+    out = tmp_path / "dry.jsonl"
+    args = types.SimpleNamespace(arch="qwen2-0.5b", shape="train_4k",
+                                 mesh="single", out=str(out), opt="",
+                                 force=False)
+    dryrun.run(args)
+    rows = [json.loads(line) for line in out.read_text().splitlines()]
+    assert len(rows) == 1 and rows[0]["status"] == "ok"
+    assert set(rows[0]) == ROW_KEYS | {"trace_s"}
+    assert rows[0]["mem"]["argument_bytes"] < H100.hbm_per_chip
+    dryrun.run(args)
+    assert len(out.read_text().splitlines()) == 1
+    assert no_kernel == [] and not dist.is_initialized()
+
+
+# ---- roofline.py ----
+def test_roofline_matches_the_reference():
+    """The port's copy gives the reference's table and summary on the
+    same rows (ok, skip and error)."""
+    rows = [
+        {"arch": "a", "shape": "train_4k", "mesh": "single", "status": "ok",
+         "compute_term_s": 2e-3, "memory_term_s": 5e-4,
+         "collective_term_s": 7e-7, "dominant": "compute_s",
+         "useful_flops_ratio": 0.71,
+         "mem": {"argument_bytes": 3 * 2**30, "alias_bytes": 2**30,
+                 "temp_bytes": 2**29, "output_bytes": 2**30}},
+        {"arch": "b", "shape": "decode_32k", "mesh": "single", "status": "ok",
+         "compute_term_s": 1e-9, "memory_term_s": 2.5,
+         "collective_term_s": 0.0, "dominant": "memory_s",
+         "useful_flops_ratio": 0.2,
+         "mem": {"argument_bytes": 2**33, "alias_bytes": 0,
+                 "temp_bytes": 0, "output_bytes": 0}},
+        {"arch": "c", "shape": "long_500k", "mesh": "single",
+         "status": "skip", "reason": "long_500k skipped: pure attention"},
+        {"arch": "d", "shape": "train_4k", "mesh": "single",
+         "status": "error", "error": "RuntimeError: x"},
+    ]
+    assert roofline.markdown_table(rows) == j_roofline.markdown_table(rows)
+    assert roofline.summarize(rows) == j_roofline.summarize(rows)

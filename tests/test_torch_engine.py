@@ -209,15 +209,21 @@ def test_port_imports_neither_jax_nor_reference():
     """A fresh interpreter that imports the port, serves on the CPU,
     compiles two workloads, runs the fluid simulator and the serving
     control plane, and takes a training step with a checkpoint on the
-    CPU has loaded no JAX, no msgpack and nothing of the reference
-    package."""
+    CPU, and imports the distribution and dry-run layer, has loaded no
+    JAX, no msgpack and nothing of the reference package."""
     code = textwrap.dedent("""
         import sys
         import tempfile
         import numpy as np
         import repro_torch
         import repro_torch.checkpoint
+        import repro_torch.checkpoint.elastic
         import repro_torch.core
+        import repro_torch.distributed.sharding
+        import repro_torch.launch.dryrun
+        import repro_torch.launch.mesh
+        import repro_torch.launch.op_analysis
+        import repro_torch.launch.roofline
         import repro_torch.npu
         import repro_torch.serve.session
         import repro_torch.serve.vserve

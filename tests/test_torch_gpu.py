@@ -394,3 +394,47 @@ def test_train_resume_on_card_is_exact(hopper, tmp_path):
     resumed = _train(cfg, "cuda", steps=6, ckpt_dir=d, ckpt_every=3)
     np.testing.assert_allclose(full["losses"][3:], resumed["losses"],
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("route", [False, "cp"], ids=["masked", "cp"])
+def test_sharded_train_step_on_a_one_rank_nccl_mesh(hopper, route):
+    """A smoke config's train step, its state placed by the sharding
+    rules on a world-size-1 nccl group's (1, 1) mesh, equals the plain
+    step on the card from the same weights (S = 256: "cp" takes the
+    chunked route); the group is gone afterwards."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.checkpoint.elastic import reshard_state
+    from repro_torch.distributed.sharding import (batch_specs, param_specs,
+                                                  placements, state_specs)
+    from repro_torch.launch.mesh import make_local_mesh, process_group
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models.registry import build_model
+
+    cfg = SMOKES["qwen2-0.5b"]
+    model = build_model(cfg, use_flash=route)
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 256), generator=g)
+             .to("cuda") for k in ("tokens", "targets")}
+    step = make_train_step(model, peak_lr=1e-3, warmup=1)
+
+    def state():
+        return init_train_state(model, torch.Generator().manual_seed(0),
+                                device="cuda")
+
+    plain, m = step(state(), batch)
+    with process_group("nccl"):
+        mesh = make_local_mesh()
+        st = reshard_state(state(), mesh, state_specs(
+            cfg, mesh, param_specs(cfg, plain["params"], mesh)))
+        bs = batch_specs(cfg, "train", mesh)
+        placed = {k: distribute_tensor(v, mesh, placements(bs[k], mesh))
+                  for k, v in batch.items()}
+        st, ms = step(st, placed)
+        loss = float(ms["loss"].full_tensor())
+        got = {k: v.full_tensor() for k, v in st["params"].named_parameters()}
+    assert not dist.is_initialized()
+    assert loss == pytest.approx(float(m["loss"]), rel=1e-6)
+    for k, v in plain["params"].named_parameters():
+        torch.testing.assert_close(got[k], v.detach(), rtol=0, atol=1e-6)

@@ -205,10 +205,19 @@ def test_train_every_family_on_cpu(arch):
 
 @pytest.mark.parametrize("use_flash", ["cp", "pallas"])
 def test_training_refuses_routes_without_a_port(use_flash):
+    """"pallas" has no training route (the kernel has no backward). "cp"
+    has one since the distribution slice: off a mesh its constraint is
+    identity, so it is the chunked route (at S >= 256)."""
     m = build_model(CFG, use_flash=use_flash)
     st = init_train_state(m, torch.Generator().manual_seed(0), device="cpu")
-    batch = {"tokens": torch.zeros(1, 8, dtype=torch.long),
-             "targets": torch.zeros(1, 8, dtype=torch.long)}
+    batch = {"tokens": torch.zeros(1, 256, dtype=torch.long),
+             "targets": torch.zeros(1, 256, dtype=torch.long)}
+    if use_flash == "cp":
+        loss, _ = m.loss(st["params"], batch)
+        chunked, _ = build_model(CFG, use_flash=True).loss(st["params"],
+                                                           batch)
+        assert torch.equal(loss, chunked)
+        return
     with pytest.raises(ValueError, match="no training route"):
         m.loss(st["params"], batch)
 
