@@ -56,8 +56,10 @@ Run from the repository root, with nothing else on the command line:
    step from the same weights on the card (``MESH_RTOL``), with no K1 or
    K2 launch; prints ms a step beside the plain step's and peak memory.
    (b) The dry run, host only: ``analyze_cell`` on
-   ``MESH_DRYRUN_CELLS`` at full width on a fake 16x16 mesh, every row
-   ok and under the card's memory per device.
+   ``MESH_DRYRUN_CELLS`` at full width on a fake 16x16 mesh and a fake
+   2x16x16 mesh, every row ok, under the card's memory per device, and
+   held to the reference's per-device FLOPs and collective bytes (its
+   numbers are constants here: the card's machine has no JAX).
 9. Control plane: the serving session (the NPU simulated on the host):
    qwen3-14b decode next to qwen2-0.5b prefill in closed loop under
    every policy, then open loop with a mid-run register, SLO autoscale
@@ -122,9 +124,57 @@ RESUME_RTOL = 1e-5
 # from the same weights on the card: the largest relative difference of
 # a loss over 3 steps.
 MESH_RTOL = 1e-6
-# The dry-run cells the mesh phase traces (16x16 fake mesh, full width).
-MESH_DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"),
-                     ("qwen2-moe-a2.7b", "decode_32k"))
+# The dry-run cells the mesh phase traces at full width: (arch, shape,
+# mesh, the reference's per-device FLOPs and collective bytes, the
+# port's per-device FLOPs on torch 2.13 on the CPU). The reference's
+# numbers come from its own dry run, which needs JAX (absent on the
+# card's machine), run on the CPU at commit 41fae85 (its package is
+# unchanged since) as
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -m repro.launch.dryrun \
+#       --arch ARCH --shape SHAPE --mesh MESH --out results/ref.jsonl
+# (its "flops_per_device" and "collective_bytes_per_device"); the
+# port's, from ``python -m repro_torch.launch.dryrun`` with the same
+# arguments on the tree that added them.
+MESH_DRYRUN_CELLS = (
+    ("qwen2-0.5b", "train_4k", "single", 128219671953408.0, 35409886248.0,
+     128219671953408.0),
+    ("qwen2-moe-a2.7b", "decode_32k", "single", 54641033216.0, 762134528.0,
+     54641033216.0),
+    ("zamba2-7b", "prefill_32k", "single", 108965534892032.0,
+     204858720256.0, 107161648627712.0),
+    ("qwen2-0.5b", "train_4k", "multi", 64109835976704.0, 18027904040.0,
+     64109835976704.0),
+    ("qwen3-14b", "train_4k", "multi", 1269702391234560.0, 190008123440.0,
+     1269702391234560.0),
+)
+# Per-device FLOPs of a dry-run row against the reference's: the largest
+# relative difference allowed (the layouts the sharding rules give). Four
+# cells measured equal; zamba2-7b 0.983: the reference scales its shared
+# attention block's conditional branch by 1/6 over 81 layers (13.5
+# applications), the port runs and counts the 13 there are.
+DRYRUN_FLOPS_RTOL = 0.10
+# The same count on this machine's torch against the port's on torch
+# 2.13: the layouts are stated, so the release must not move them.
+DRYRUN_RELEASE_RTOL = 1e-6
+# Collective bytes per device against the reference's. All but 0.1% of
+# these cells' collective bytes are all-reduces in both packages
+# (PERF.md, section 6, breaks them down op by op), and the ratio is
+# expected at ``DRYRUN_COLL_EXPECT`` of the cell's kind: a half, since
+# the reference's CPU compile all-reduces bf16 partial sums in f32 (its
+# HLO: ``f32[16,4096,896] all-reduce(%convert_bitcast_fusion)``, a
+# convert from bf16); in a training step two thirds of that again, since
+# the reference's remat recomputes each layer's forward all-reduce in
+# the backward (three of the residual stream a layer: forward, recomputed
+# forward, backward) and torch's checkpoint stops its recompute at the
+# last tensor the backward saved, before the layer's closing all-reduce
+# (two a layer). A row must lie within ``DRYRUN_COLL_RTOL`` of that
+# ratio: one all-reduce of the residual stream a layer missing or extra
+# moves a train row by a half and the Zamba2 prefill row by three
+# quarters; the moe decode row is 99% its experts' all-reduce. Measured
+# on torch 2.11 and 2.13 alike: 1.0225, 1.0311 and 1.0762 of it (train),
+# 0.9910 (prefill) and 0.9991 (decode).
+DRYRUN_COLL_EXPECT = {"train": 1 / 3, "prefill": 1 / 2, "decode": 1 / 2}
+DRYRUN_COLL_RTOL = 0.10
 
 
 def check(ok: bool, what: str) -> None:
@@ -1075,15 +1125,8 @@ def mesh_phase(fa, gm, cfg) -> dict:
     (1, 1) mesh, placed by the sharding rules, on the masked-attention
     route and on "cp"; each loss is held to the plain step from the same
     weights on the card within ``MESH_RTOL``, with no K1 or K2 launch.
-    (b) The dry run (host only: a fake 256-rank group, meta shards)
-    traces ``MESH_DRYRUN_CELLS`` at full width on the 16x16 mesh; every
-    row must be ok and its per-device argument bytes under the card's
-    memory. zamba2-7b x prefill_32k is left out: its 81 layers x 128 SSD
-    chunks take ~280 s of host time (over the phase's two minutes)."""
-    from repro_torch.configs import ARCHS, SHAPES_BY_NAME
+    (b) ``dryrun_cells``."""
     from repro_torch.data import SyntheticLMData
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_production_mesh, process_group
 
     B, S, steps = 8, 256, 3
     data = SyntheticLMData(cfg, B, S, seed=0)
@@ -1112,32 +1155,80 @@ def mesh_phase(fa, gm, cfg) -> dict:
               f"{name}: sharded losses {shard['losses']} vs plain "
               f"{plain['losses']} (max rel {rel:.2e})")
     print("mesh (a) sharded training step: " + json.dumps(report))
+    return {"a": report, "b": dryrun_cells(fa, gm)}
+
+
+def dryrun_cells(fa, gm) -> dict:
+    """The dry run, host only: ``analyze_cell`` on ``MESH_DRYRUN_CELLS``
+    at full width, inside a fake 256-rank group for the 16x16 mesh and
+    then a fake 512-rank group for the 2x16x16 one (meta shards). Every
+    row must be ok, its per-device argument bytes under the card's
+    memory, its per-device FLOPs within ``DRYRUN_FLOPS_RTOL`` of the
+    reference's and within ``DRYRUN_RELEASE_RTOL`` of the port's on
+    torch 2.13, and its collective bytes within ``DRYRUN_COLL_RTOL`` of
+    ``DRYRUN_COLL_EXPECT`` times the reference's, with no K1 or K2
+    launch."""
+    from repro_torch.configs import ARCHS, SHAPES_BY_NAME
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh, process_group
 
     rows = []
     t0 = time.perf_counter()
-    with process_group("fake", 256):
-        mesh = make_production_mesh()
-        for arch, shape in MESH_DRYRUN_CELLS:
-            rows.append(dryrun.analyze_cell(arch, ARCHS[arch],
-                                            SHAPES_BY_NAME[shape], mesh,
-                                            "single"))
+    fa.launches = gm.launches = 0
+    for mesh_name in ("single", "multi"):
+        world, multi_pod = dryrun.MESHES[mesh_name]
+        with process_group("fake", world):
+            mesh = make_production_mesh(multi_pod=multi_pod)
+            for arch, shape, m, ref_flops, ref_coll, flops_213 in \
+                    MESH_DRYRUN_CELLS:
+                if m != mesh_name:
+                    continue
+                r = dryrun.analyze_cell(arch, ARCHS[arch],
+                                        SHAPES_BY_NAME[shape], mesh, m)
+                r["ref"] = {"flops_per_device": ref_flops,
+                            "collective_bytes_per_device": ref_coll}
+                r["flops_torch_2_13"] = flops_213
+                rows.append(r)
+    launches = {"flash_attention": fa.launches, "grouped_matmul": gm.launches}
     total = torch.cuda.get_device_properties(0).total_memory
+    keys = ("arch", "shape", "mesh", "status", "dominant", "flops_per_device",
+            "bytes_per_device", "collective_bytes_per_device", "trace_s")
     dry = {"host_only": True, "s": time.perf_counter() - t0,
-           "card_total_memory": total, "cells": [
-               {k: r[k] for k in ("arch", "shape", "status", "dominant",
-                                  "flops_per_device", "bytes_per_device",
-                                  "collective_bytes_per_device", "trace_s")}
-               | {"argument_bytes": r["mem"]["argument_bytes"],
-                  "temp_bytes": r["mem"]["temp_bytes"]} for r in rows]}
-    print("mesh (b) dry run, host only, a model of a 256-GPU cluster from "
-          "spec-sheet constants: " + json.dumps(dry))
-    for r in rows:
-        check(r["status"] == "ok", f"dry run {r['arch']} x {r['shape']}: "
-              f"{r['status']}")
+           "card_total_memory": total, "kernel_launches": launches,
+           "cells": [{k: r[k] for k in keys}
+                     | {"argument_bytes": r["mem"]["argument_bytes"],
+                        "temp_bytes": r["mem"]["temp_bytes"],
+                        "ref": r["ref"],
+                        "flops_torch_2_13": r["flops_torch_2_13"],
+                        "flops_ratio": r["flops_per_device"]
+                        / r["ref"]["flops_per_device"],
+                        "collective_ratio": r["collective_bytes_per_device"]
+                        / r["ref"]["collective_bytes_per_device"]}
+                     for r in rows]}
+    print("mesh (b) dry run, host only, a model of a 256- and a 512-GPU "
+          "cluster from spec-sheet constants: " + json.dumps(dry))
+    check(launches == {"flash_attention": 0, "grouped_matmul": 0},
+          f"the dry run launched a kernel: {launches}")
+    for r, c in zip(rows, dry["cells"]):
+        what = f"dry run {r['arch']} x {r['shape']} ({r['mesh']})"
+        check(r["status"] == "ok", f"{what}: {r['status']}")
         check(r["mem"]["argument_bytes"] < total,
-              f"dry run {r['arch']} x {r['shape']}: "
-              f"{r['mem']['argument_bytes']} argument bytes per device")
-    return {"a": report, "b": dry}
+              f"{what}: {r['mem']['argument_bytes']} argument bytes per "
+              "device")
+        check(abs(c["flops_ratio"] - 1) <= DRYRUN_FLOPS_RTOL,
+              f"{what}: {r['flops_per_device']:.6e} FLOPs per device, "
+              f"{c['flops_ratio']:.4f} x the reference's")
+        check(abs(r["flops_per_device"] / r["flops_torch_2_13"] - 1)
+              <= DRYRUN_RELEASE_RTOL,
+              f"{what}: {r['flops_per_device']:.6e} FLOPs per device on "
+              f"torch {torch.__version__}, {r['flops_torch_2_13']:.6e} on "
+              "torch 2.13")
+        expect = DRYRUN_COLL_EXPECT[SHAPES_BY_NAME[r["shape"]].kind]
+        check(abs(c["collective_ratio"] / expect - 1) <= DRYRUN_COLL_RTOL,
+              f"{what}: {r['collective_bytes_per_device']:.6e} collective "
+              f"bytes per device, {c['collective_ratio']:.4f} x the "
+              f"reference's, against {expect:.4f} expected")
+    return dry
 
 
 def control_plane_phase() -> dict:

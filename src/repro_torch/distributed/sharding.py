@@ -19,9 +19,17 @@ axes. A parameter's spec is its reference leaf's spec without those
 axes: the rule is applied to the reference leaf's shape (the stacked
 axes are never sharded) and the stacked entries are dropped.
 
-Only params, inputs and caches are placed; intermediate layouts are
-left to DTensor's propagation, apart from the ``maybe_constrain`` sites
-the models share with the reference.
+The rules place params, inputs and caches; GSPMD spreads their layouts
+through a whole program, while DTensor picks each op's layout on its
+own, and a split costs it nothing, so it may shard a dim the rules
+replicate and gather it later (for the whole SSD chunk loop). So the
+models state the layouts the rules imply: the residual stream after
+the embedding, each residual add and each layer (``pin_residual``,
+``residual_add``), the logits (``pin_vocab``), and the blocks that run
+on each device's shards (``on_shards``: attention, the SSD chunk loop,
+the sLSTM scan, the embedding lookup). A pin holds a gradient to the
+same layout, as GSPMD lays out a cotangent like its primal. On plain
+tensors every one of them is the plain op.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ from typing import Dict, Iterator, Mapping, Tuple, Union
 import torch
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
@@ -377,24 +385,205 @@ def shardings_for(shapes_tree, spec_tree, mesh: DeviceMesh):
     return named(mesh, sanitize_tree(shapes_tree, spec_tree, mesh))
 
 
-def maybe_constrain(x, *entries):
-    """Identity on a plain tensor. On a DTensor whose mesh has the named
-    axes, redistribute it to the spec of ``entries`` (axes the mesh
-    lacks are dropped, as in the reference), so layers can call it
-    unconditionally; single-device paths are unaffected."""
-    if not isinstance(x, DTensor):
-        return x
-    mesh = x.device_mesh
+def _on_mesh(mesh: DeviceMesh, entries) -> tuple:
+    """The placements of the spec ``entries`` on ``mesh``, the axes the
+    mesh lacks dropped (as the reference's ``maybe_constrain`` drops
+    them)."""
     names = {a for axes in mesh_axes(mesh) for a in axes}
     cleaned = []
     for e in entries:
         axes = tuple(a for a in _entry_axes(e) if a in names) if e else ()
         cleaned.append(None if not axes else
                        axes[0] if len(axes) == 1 else axes)
-    want = placements(P(*cleaned), mesh)
+    return placements(P(*cleaned), mesh)
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor brought to placements ``want``, and its gradient too: a
+    sharding constraint pins the cotangent as well (its transpose in
+    JAX is the same constraint)."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        if tuple(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.want:
+            g = g.redistribute(g.device_mesh, ctx.want)
+        return g, None
+
+
+def maybe_constrain(x, *entries):
+    """Identity on a plain tensor. On a DTensor whose mesh has the named
+    axes, redistribute it, and in a backward its gradient, to the spec
+    of ``entries`` (axes the mesh lacks are dropped, as in the
+    reference), so layers can call it unconditionally; single-device
+    paths are unaffected."""
+    if not isinstance(x, DTensor):
+        return x
+    return _pin(x, _on_mesh(x.device_mesh, entries))
+
+
+def _pin(x: DTensor, want: tuple) -> DTensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Constrain.apply(x, want)
     if tuple(x.placements) == want:
         return x
-    return x.redistribute(mesh, want)
+    return x.redistribute(x.device_mesh, want)
+
+
+def residual_add(x, y):
+    """``x + y``, a residual add. On DTensors y is first brought to x's
+    layout (a partial y is all-reduced, as GSPMD reduces it; DTensor
+    would reduce-scatter it onto the sequence and carry that layout
+    into the next block), and so is its gradient."""
+    if isinstance(x, DTensor) and isinstance(y, DTensor):
+        y = _pin(y, tuple(x.placements))
+    return x + y
+
+
+def reduced_like(v, x):
+    """``v``, a reduction of ``x`` over its last dim (kept, of size 1),
+    brought to x's layout with that dim whole, and its gradient too: a
+    partial sum is all-reduced, as GSPMD reduces it (a norm's variance);
+    DTensor would reduce-scatter it onto another dim and carry that
+    layout into the normalized output and its backward."""
+    if not (isinstance(v, DTensor) and isinstance(x, DTensor)):
+        return v
+    last = x.dim() - 1
+    return _pin(v, tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                         else p for p in x.placements))
+
+
+def _model_dim(mesh: DeviceMesh):
+    """The index of the mesh dim carrying `model`, or None."""
+    return next((i for i, axes in enumerate(mesh_axes(mesh))
+                 if MODEL_AX in axes), None)
+
+
+def _partial(pl, mesh: DeviceMesh, entry) -> tuple:
+    """``pl`` with each replicated mesh dim of more than one device that
+    carries an axis of ``entry`` made a partial sum."""
+    over = set(_entry_axes(entry))
+    return tuple(Partial() if isinstance(p, Replicate) and over & set(axes)
+                 and size > 1 else p
+                 for p, axes, size in zip(pl, mesh_axes(mesh), mesh.shape))
+
+
+def fit(x: DTensor, dim: int, entry):
+    """``entry`` if the shards it makes on ``x``'s mesh divide ``x``'s
+    dim ``dim``, else None: ``sanitize_spec`` for one entry."""
+    if not entry:
+        return None
+    names = set(_entry_axes(entry))
+    n = math.prod(s for s, axes in zip(x.device_mesh.shape,
+                                       mesh_axes(x.device_mesh))
+                  if names & set(axes))
+    return entry if x.shape[dim] % n == 0 else None
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous: a local gradient
+    handed back to DTensor (a transposed one from a matmul's backward)
+    must take the views DTensor's later ops put on it."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_shards(fn, args, specs, out_specs, partial_grads=None,
+              partial_out: bool = False):
+    """``fn(*args)`` on each device's shards: the port's ``shard_map``.
+
+    Each DTensor of ``args`` is brought to its spec in ``specs`` (entries
+    as ``maybe_constrain`` takes them) and handed to ``fn`` as its local
+    tensor; plain arguments join as replicated. ``fn`` returns a tensor,
+    or a tuple when ``out_specs`` is a list, and each comes back as a
+    DTensor of its spec. ``partial_grads``: {argument index: an entry of
+    mesh axes} for arguments replicated there whose local gradients are
+    partial sums there, because each device reads another part of them
+    (another kv head, another batch shard). ``partial_out``: the outputs
+    are partial sums over `model` (each device adds its part).
+
+    DTensor propagates layouts op by op and may shard a replicated dim
+    on the way (a split costs no communication), where GSPMD keeps the
+    layout its constraints give. A block run on its shards keeps the
+    layout its specs state, and no collective runs inside it."""
+    lead = next((a for a in args if isinstance(a, DTensor)), None)
+    if lead is None:
+        return fn(*args)
+    mesh = lead.device_mesh
+    local = []
+    for i, (a, spec) in enumerate(zip(args, specs)):
+        if isinstance(a, torch.Tensor) and not isinstance(a, DTensor) and any(
+                spec):
+            # a plain tensor joins as replicated (``replicate_plain``)
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim)
+        if not isinstance(a, DTensor):
+            local.append(a)
+            continue
+        a = maybe_constrain(a, *spec)
+        grad = None
+        if i in (partial_grads or {}):
+            grad = _partial(a.placements, mesh, partial_grads[i])
+        local.append(_ContiguousGrad.apply(a.to_local(grad_placements=grad)))
+
+    def wrap(o, spec):
+        pl = _on_mesh(mesh, spec)
+        if partial_out:
+            pl = _partial(pl, mesh, MODEL_AX)
+        return DTensor.from_local(o, mesh, pl)
+
+    out = fn(*local)
+    if not isinstance(out_specs, list):
+        return wrap(out, out_specs)
+    return tuple(wrap(o, s) for o, s in zip(out, out_specs))
+
+
+def gqa_on_shards(attn, q, k, v, *rest):
+    """``attn(q, k, v, *rest)``, an attention over q (B, S, H, hd) and
+    k, v (B, T, Hkv, hd), on each device's shards in the layout the
+    rules give: the batch over (`pod`, `data`), and the heads over
+    `model` where their count divides it, else replicated there, as the
+    reference's attention runs under GSPMD (``wq``, ``wk`` and ``wv``
+    are column-parallel only where the heads divide). Where q's heads
+    divide `model` and the kv heads do not, each device takes the one
+    kv head its q heads share. Identity on plain tensors; a cache
+    sharded on another dim (its sequence, or its head dim) is left to
+    DTensor's propagation."""
+    if not isinstance(q, DTensor) or any(
+            isinstance(p, Shard) and p.dim not in (0, 2)
+            for p in k.placements):
+        return attn(q, k, v, *rest)
+    dp = fit(q, 0, ("pod", "data"))
+    hq, hk = fit(q, 2, MODEL_AX), fit(k, 2, MODEL_AX)
+    H, Hkv = q.shape[2], k.shape[2]
+    g = H // Hkv
+    mesh, m = q.device_mesh, _model_dim(q.device_mesh)
+    n_loc = H // mesh.size(m) if hq and m is not None else H
+    if hq and not hk and g % n_loc:
+        hq = None                 # a device's q heads span two kv heads
+    fn, partial = attn, None
+    if hq and not hk:
+        lo = mesh.get_local_rank(m) * n_loc // g
+
+        def fn(q_l, k_l, v_l, *r):
+            return attn(q_l, k_l[:, :, lo:lo + 1], v_l[:, :, lo:lo + 1], *r)
+
+        partial = {1: MODEL_AX, 2: MODEL_AX}
+    spec_q, spec_kv = P(dp, None, hq, None), P(dp, None, hk, None)
+    return on_shards(fn, (q, k, v) + rest,
+                     (spec_q, spec_kv, spec_kv) + (P(),) * len(rest),
+                     spec_q, partial)
 
 
 def _gathered_for(x: DTensor, shape) -> DTensor:
@@ -436,16 +625,22 @@ def _gathered_for(x: DTensor, shape) -> DTensor:
 
 class _Reshape(torch.autograd.Function):
     """A DTensor reshape whose backward reshapes the gradient back with
-    the same guard (the gradient arrives with its own placements)."""
+    the same guard (the gradient arrives with its own placements) and
+    returns it in the input's layout, as GSPMD lays a cotangent out like
+    its primal."""
 
     @staticmethod
     def forward(ctx, x, shape):
-        ctx.old = tuple(x.shape)
+        ctx.old, ctx.placements = tuple(x.shape), tuple(x.placements)
         return _gathered_for(x, shape).reshape(shape)
 
     @staticmethod
     def backward(ctx, g):
-        return _gathered_for(g, ctx.old).reshape(ctx.old), None
+        g = _gathered_for(g, ctx.old).reshape(ctx.old)
+        if tuple(g.placements) != ctx.placements and not any(
+                isinstance(p, Partial) for p in ctx.placements):
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
 
 
 def reshape(x, *shape):
@@ -461,38 +656,34 @@ def reshape(x, *shape):
     return _Reshape.apply(x, torch.Size(shape))
 
 
-def einsum(equation: str, *operands):
-    """``torch.einsum``. Where DTensor cannot flatten the batch dims of
-    sharded operands (an older DTensor refuses to merge a sharded dim
-    that is not the outermost, as the batch and kv-head dims of a GQA
-    einsum are), the operands' shards over `model` are gathered and the
-    einsum runs again with the data-parallel shards alone."""
-    try:
-        return torch.einsum(equation, *operands)
-    except RuntimeError as e:
-        if "flatten" not in str(e) or not any(
-                isinstance(t, DTensor) for t in operands):
-            raise
-    out = []
-    for t in operands:
-        if isinstance(t, DTensor):
-            pl = [p if {"pod", "data"} & set(axes) else Replicate()
-                  for p, axes in zip(t.placements, mesh_axes(t.device_mesh))]
-            t = t.redistribute(t.device_mesh, pl)
-        out.append(t)
-    return torch.einsum(equation, *out)
-
-
 def embed(table, tokens):
     """``table[tokens]``, the rows of an embedding table. A sharded
-    table is gathered whole first and read through ``F.embedding`` (its
-    gradient goes back to the table's shards as a reduction): DTensor's
-    masked lookup of a vocab-sharded table, and the backward of an
+    table is read on each device's shards, as GSPMD partitions the
+    lookup: a vocab-sharded table looks up the tokens in its own slice
+    and the rows add up across `model` (a partial sum, reduced where
+    the residual stream is pinned); a table sharded on d returns rows
+    sharded on d. DTensor's own masked lookup, and the backward of an
     indexed read, carry placements its redistribution refuses."""
-    if isinstance(table, DTensor):
-        table = maybe_constrain(table, *([None] * table.dim()))
-        return torch.nn.functional.embedding(tokens, table)
-    return table[tokens]
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    dims = {p.dim for p in table.placements if isinstance(p, Shard)}
+    dp = fit(tokens, 0, ("pod", "data"))
+    lead = P(dp, *([None] * (tokens.dim() - 1)))
+    grads = {0: dp} if dp else None
+    if 0 in dims:
+        lo, n = _vocab_slice(mesh, table.shape[0])
+
+        def look(tab, idx):
+            i, inside = _in_slice(idx, lo, n)
+            rows = torch.nn.functional.embedding(i, tab)
+            return rows * inside[..., None].to(rows.dtype)
+
+        return on_shards(look, (table, tokens), (P(MODEL_AX, None), lead),
+                         P(*lead, None), grads, partial_out=True)
+    d = MODEL_AX if 1 in dims else None
+    return on_shards(lambda tab, idx: torch.nn.functional.embedding(idx, tab),
+                     (table, tokens), (P(None, d), lead), P(*lead, d), grads)
 
 
 def pin_batch(x):
@@ -502,6 +693,167 @@ def pin_batch(x):
     like GSPMD's, and left alone it keeps a vocab-sharded table's lookup
     sharded on d_model and spreads that through every layer."""
     return maybe_constrain(x, ("pod", "data"), *([None] * (x.dim() - 1)))
+
+
+def pin_residual(x, table):
+    """``maybe_constrain`` of the residual stream (B, S, d) to the layout
+    GSPMD gives it from the embedding table: batch shards over (`pod`,
+    `data`), and d over `model` where the rules shard the table on d
+    (the vocab does not divide), else whole. Where the models pin it:
+    after the embedding and after each layer. DTensor propagates
+    layouts op by op, with no global pass like GSPMD's, and left alone
+    it spreads whatever layout an op picks through every layer."""
+    if not isinstance(x, DTensor):
+        return x
+    d = MODEL_AX if _d_sharded(table) else None
+    return maybe_constrain(x, ("pod", "data"), *([None] * (x.dim() - 2)), d)
+
+
+def unembed(x, w):
+    """``x @ w`` of the unembedding w (d, V). Where the rules shard w on
+    d (the vocab does not divide `model`), x is pinned to d shards
+    first, so the backward's weight gradient (xᵀ · dlogits) runs on
+    them too, as GSPMD propagates it from the weight; DTensor would
+    run it whole."""
+    if isinstance(w, DTensor) and any(
+            isinstance(p, Shard) and p.dim == 0 for p in w.placements):
+        x = maybe_constrain(x, ("pod", "data"), *([None] * (x.dim() - 2)),
+                            MODEL_AX)
+    return x @ w
+
+
+def project(x, w, out_like=None):
+    """``x @ w`` for a projection whose weight the rules replicate over
+    `model` (attention's, where the heads do not divide it). GSPMD
+    splits such a weight to follow the residual stream: where x is
+    sharded on d (``pin_residual``), w is split on its rows (a partial
+    sum, reduced after); where ``out_like`` is, on its columns. DTensor
+    would run the product whole, and its backward too."""
+    if isinstance(w, DTensor) and isinstance(x, DTensor) and not any(
+            isinstance(p, Shard) for p in w.placements):
+        if _d_sharded(x):
+            w = maybe_constrain(w, MODEL_AX, None)
+        elif out_like is not None and _d_sharded(out_like):
+            w = maybe_constrain(w, None, MODEL_AX)
+    return x @ w
+
+
+def _d_sharded(x) -> bool:
+    return isinstance(x, DTensor) and any(
+        isinstance(p, Shard) and p.dim == x.dim() - 1 and MODEL_AX in axes
+        for p, axes in zip(x.placements, mesh_axes(x.device_mesh)))
+
+
+def pin_vocab(logits):
+    """``maybe_constrain`` of logits (B, S, ..., V) to the rules' layout:
+    batch shards over (`pod`, `data`), the vocab over `model` where the
+    unembedding is vocab-parallel, every other dim whole. The loss reads
+    them there (``registry.cross_entropy``), so no device gathers the
+    vocab."""
+    if not isinstance(logits, DTensor):
+        return logits
+    return maybe_constrain(logits, ("pod", "data"),
+                           *([None] * (logits.dim() - 2)),
+                           fit(logits, logits.dim() - 1, MODEL_AX))
+
+
+def kv_heads(n_heads: int, n_kv: int, hd: int, *ws):
+    """(kv heads, the kv projection weights (d, n_kv*hd) and biases
+    (n_kv*hd,) in ``ws``) for an attention whose q heads the rules shard
+    over `model` and whose kv heads they replicate there (qwen2-72b's 64
+    and 8 on 16 devices): each device needs only the one kv head its q
+    heads share, and GSPMD projects only that. The weights come back as
+    ``model``-size virtual kv heads sharded over `model`, device r's
+    being kv head r * n_kv // model, so k and v are projected per device
+    and ``gqa_on_shards`` pairs them with the q heads there. Anything
+    else (plain tensors, other head counts) comes back as it is."""
+    w0 = ws[0]
+    if not isinstance(w0, DTensor):
+        return (n_kv, *ws)
+    mesh, m = w0.device_mesh, _model_dim(w0.device_mesh)
+    M = 1 if m is None else mesh.size(m)
+    if n_heads % M or not n_kv % M or (n_heads // n_kv) % (n_heads // M):
+        return (n_kv, *ws)
+    lo = mesh.get_local_rank(m) * n_kv // M
+
+    def virtual(w):
+        if w is None:
+            return None
+        lead = (None,) * (w.dim() - 1)
+        return on_shards(lambda t: t[..., lo * hd:(lo + 1) * hd], (w,),
+                         (P(*lead, None),), P(*lead, MODEL_AX),
+                         {0: MODEL_AX})
+
+    return (M, *(virtual(w) for w in ws))
+
+
+def kv_whole(k, n_kv: int):
+    """k or v (B, S, heads, hd) with its ``n_kv`` kv heads whole, from
+    ``kv_heads``' virtual heads (each kv head repeated over the devices
+    that share it): gathered over `model` and one of each kept, as the
+    cache holds them. Anything else comes back as it is."""
+    if not isinstance(k, DTensor) or k.shape[2] == n_kv:
+        return k
+    k = maybe_constrain(k, ("pod", "data"), None, None, None)
+    return k[:, :, ::k.shape[2] // n_kv]
+
+
+def cp_on_shards(attn, q, k, v, chunk):
+    """``attn(q, k, v, chunk, q_start=...)``, a causal attention, with
+    q's sequence over `model` and K/V whole: the reference's context-
+    parallel constraint on q (its batch whole too), on each device's
+    shards, each device's q rows starting at their own key position.
+    The output comes back in q's layout (an older DTensor cannot merge a
+    sharded sequence into the batch for the out-projection). Identity
+    on plain tensors."""
+    if not isinstance(q, DTensor):
+        return attn(q, k, v, chunk)
+    mesh, m = q.device_mesh, _model_dim(q.device_mesh)
+    seq = fit(q, 1, MODEL_AX)
+    start = (mesh.get_local_rank(m) * (q.shape[1] // mesh.size(m))
+             if seq and m is not None else 0)
+    spec_q, whole = P(None, seq, None, None), P(None, None, None, None)
+    out = on_shards(lambda q_l, k_l, v_l: attn(q_l, k_l, v_l, chunk,
+                                               q_start=start),
+                    (q, k, v), (spec_q, whole, whole), spec_q,
+                    {1: MODEL_AX, 2: MODEL_AX} if seq else None)
+    return _pin(out, tuple(q.placements))
+
+
+def pick_vocab(logits, index):
+    """``logits.gather(-1, index[..., None])[..., 0]``: each row's logit
+    at ``index``. Where the vocab is sharded over `model`, each device
+    picks from its own slice and the picks add up across `model` (the
+    vocab-parallel read; DTensor's own masked gather trips on the
+    trailing dim)."""
+    if not _d_sharded(logits):
+        return logits.gather(-1, index[..., None])[..., 0]
+    lo, n = _vocab_slice(logits.device_mesh, logits.shape[-1])
+
+    def pick(lg, idx):
+        i, inside = _in_slice(idx, lo, n)
+        got = lg.gather(-1, i[..., None])[..., 0]
+        return torch.where(inside, got, torch.zeros_like(got))
+
+    lead = (fit(index, 0, ("pod", "data")),) + (None,) * (index.dim() - 1)
+    return on_shards(pick, (logits, index),
+                     (P(*lead, MODEL_AX), P(*lead)), P(*lead),
+                     partial_out=True)
+
+
+def _vocab_slice(mesh: DeviceMesh, vocab: int) -> Tuple[int, int]:
+    """(first id, ids) of this device's slice of a vocab sharded over
+    `model`."""
+    m = _model_dim(mesh)
+    n = vocab // mesh.size(m)
+    return mesh.get_local_rank(m) * n, n
+
+
+def _in_slice(idx, lo: int, n: int):
+    """(ids made local to the slice [lo, lo + n) and clamped into it,
+    whether each id lies in it)."""
+    i = idx.long() - lo
+    return i.clamp(0, n - 1), (i >= 0) & (i < n)
 
 
 def sharded(t) -> bool:

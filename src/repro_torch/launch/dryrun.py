@@ -27,7 +27,11 @@ minutes a cell on three mesh dims.
 
 The steps take the reference's routes (``serve_kernels=False``): masked
 ``_sdpa``, or ``_sdpa_chunked`` under the ``flash``/``flash_cp`` opts,
-and the experts as einsums; no kernel is handed a meta tensor.
+and the experts as einsums; no kernel is handed a meta tensor. The
+models pin the layouts the sharding rules imply where GSPMD would
+spread them (``distributed.sharding``'s module docstring), so the
+per-device counts follow the rules, not the DTensor release's op-by-op
+choices.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun          # all cells

@@ -24,7 +24,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import einsum, maybe_constrain, reshape
+from repro_torch.distributed.sharding import (cp_on_shards, gqa_on_shards,
+                                              kv_heads, kv_whole, pin_batch,
+                                              project, reduced_like, reshape)
 from repro_torch.kernels import ops as kops
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
@@ -55,7 +57,7 @@ class RMSNorm(nn.Module):
 
 
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    var = x.float().square().mean(dim=-1, keepdim=True)
+    var = reduced_like(x.float().square().mean(dim=-1, keepdim=True), x)
     y = x * torch.rsqrt(var + eps).to(x.dtype)
     return y * p.scale.to(x.dtype)
 
@@ -108,17 +110,24 @@ class Attention(nn.Module):
 def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v (B, S, heads, hd). Where the rules shard q's heads and not
+    the kv heads, k and v come back with one kv head per device
+    (``sharding.kv_heads``; ``sharding.kv_whole`` gives the cache its
+    heads back)."""
     B, S, _ = x.shape
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    bk, bv = (p.bk, p.bv) if cfg.qkv_bias else (None, None)
+    n_kv, wk, wv, bk, bv = kv_heads(cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                                    p.wk, p.wv, bk, bv)
+    q = project(x, p.wq)
+    k = project(x, wk)
+    v = project(x, wv)
     if cfg.qkv_bias:
         q = q + p.bq.to(x.dtype)
-        k = k + p.bk.to(x.dtype)
-        v = v + p.bv.to(x.dtype)
+        k = k + bk.to(x.dtype)
+        v = v + bv.to(x.dtype)
     q = reshape(q, B, S, cfg.n_heads, cfg.d_head)
-    k = reshape(k, B, S, cfg.n_kv_heads, cfg.d_head)
-    v = reshape(v, B, S, cfg.n_kv_heads, cfg.d_head)
+    k = reshape(k, B, S, n_kv, cfg.d_head)
+    v = reshape(v, B, S, n_kv, cfg.d_head)
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = rmsnorm(p.k_norm, k, cfg.norm_eps)
@@ -128,30 +137,31 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  chunk: int = 512, context_parallel: bool = False
-                  ) -> torch.Tensor:
+                  chunk: int = 512, context_parallel: bool = False,
+                  q_start: int = 0) -> torch.Tensor:
     """Causal attention as a loop over KV blocks of ``chunk`` keys with
     an online fp32 softmax: the reference's ``_sdpa_chunked``, training's
     route with ``use_flash=True`` (or "cp") at S >= 256. q (B,S,H,hd),
-    k/v (B,S,Hkv,hd).
+    k/v (B,T,Hkv,hd); q's first row sits at key position ``q_start``.
 
     ``context_parallel``: shard the Q sequence over the `model` mesh
-    axis (K/V as they are), the reference's constraint: for archs whose
-    head count doesn't divide the TP axis, attention is otherwise
-    replicated per device. Identity unless q is a DTensor."""
+    axis (K/V whole), the reference's constraint: for archs whose head
+    count doesn't divide the TP axis, attention is otherwise replicated
+    per device. Identity unless q is a DTensor; on DTensors each device
+    runs its q rows against the whole K/V."""
     if context_parallel:
-        q = maybe_constrain(q, None, "model", None, None)
+        return cp_on_shards(_sdpa_chunked, q, k, v, chunk)
     B, S, H, hd = q.shape
-    Hkv = k.shape[2]
+    T, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
     scale = 1.0 / math.sqrt(hd)
-    nc = -(-S // chunk)
-    pad = nc * chunk - S
+    nc = -(-T // chunk)
+    pad = nc * chunk - T
     if pad:   # zeros after the last key (a cat: DTensor pads unreliably)
         k = torch.cat([k, k.new_zeros((B, pad) + k.shape[2:])], dim=1)
         v = torch.cat([v, v.new_zeros((B, pad) + v.shape[2:])], dim=1)
     qg = reshape(q, B, S, Hkv, g, hd)
-    q_pos = torch.arange(S, device=q.device)
+    q_pos = q_start + torch.arange(S, device=q.device)
     m_run = torch.full((B, S, Hkv, g), -1e30, dtype=torch.float32,
                        device=q.device)
     l_run = torch.zeros((B, S, Hkv, g), dtype=torch.float32, device=q.device)
@@ -160,7 +170,7 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for ci in range(nc):
         k_b = k[:, ci * chunk:(ci + 1) * chunk]
         v_b = v[:, ci * chunk:(ci + 1) * chunk]
-        s = einsum("bskgh,btkh->bskgt", qg, k_b).float() * scale
+        s = torch.einsum("bskgh,btkh->bskgt", qg, k_b).float() * scale
         k_pos = ci * chunk + torch.arange(chunk, device=q.device)
         causal = q_pos[:, None] >= k_pos[None, :]
         s = s.masked_fill(~causal[None, :, None, None, :], -1e30)
@@ -168,7 +178,7 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         alpha = torch.exp(m_run - m_new)
         p = torch.exp(s - m_new[..., None])
         l_run = l_run * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + einsum(
+        acc = acc * alpha[..., None] + torch.einsum(
             "bskgt,btkh->bskgh", p.to(v_b.dtype), v_b).float()
         m_run = m_new
     out = acc / l_run.clamp_min(1e-30)[..., None]
@@ -183,12 +193,12 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
     q = reshape(q, B, S, Hkv, g, hd)
-    scores = einsum("bskgh,btkh->bkgst", q, k).float()
+    scores = torch.einsum("bskgh,btkh->bkgst", q, k).float()
     scores = scores / math.sqrt(hd)
     if mask is not None:
         scores = scores.masked_fill(~mask, -1e30)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = einsum("bkgst,btkh->bskgh", w, v)
+    out = torch.einsum("bkgst,btkh->bskgh", w, v)
     return reshape(out, B, S, H, hd)
 
 
@@ -218,31 +228,36 @@ def attention_apply(
     new_cache = None
     if cache is not None and cache_index is not None and S == 1:
         k_cache, v_cache = cache
-        k_cache[:, cache_index:cache_index + 1] = k.to(k_cache.dtype)
-        v_cache[:, cache_index:cache_index + 1] = v.to(v_cache.dtype)
+        k_cache[:, cache_index:cache_index + 1] = kv_whole(
+            k, cfg.n_kv_heads).to(k_cache.dtype)
+        v_cache[:, cache_index:cache_index + 1] = kv_whole(
+            v, cfg.n_kv_heads).to(v_cache.dtype)
         new_cache = (k_cache, v_cache)
         T = k_cache.shape[1]
         valid = torch.arange(T, device=x.device) <= cache_index
         # low-precision KV caches are upcast at read; scores/softmax
         # math stays in the compute dtype
-        out = _sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), valid)
+        out = gqa_on_shards(_sdpa, q, k_cache.to(q.dtype),
+                            v_cache.to(q.dtype), valid)
     else:
         if causal and use_flash is None:
             out = kops.flash_attention(q, k, v, causal=True)
+        elif causal and use_flash == "cp" and S >= 256:
+            out = _sdpa_chunked(q, k, v, context_parallel=True)
         elif causal and use_flash and S >= 256:
-            out = _sdpa_chunked(q, k, v, context_parallel=use_flash == "cp")
+            out = gqa_on_shards(_sdpa_chunked, q, k, v)
         elif causal:
             mask = torch.ones((S, S), dtype=torch.bool,
                               device=x.device).tril()[None, None, None]
-            out = _sdpa(q, k, v, mask)
+            out = gqa_on_shards(_sdpa, q, k, v, mask)
         else:
-            out = _sdpa(q, k, v, None)
+            out = gqa_on_shards(_sdpa, q, k, v, None)
         if cache is not None:
             k_cache, v_cache = cache
-            k_cache[:, :S] = k.to(k_cache.dtype)
-            v_cache[:, :S] = v.to(v_cache.dtype)
+            k_cache[:, :S] = kv_whole(k, cfg.n_kv_heads).to(k_cache.dtype)
+            v_cache[:, :S] = kv_whole(v, cfg.n_kv_heads).to(v_cache.dtype)
             new_cache = (k_cache, v_cache)
-    out = reshape(out, B, S, cfg.d_q) @ p.wo
+    out = project(reshape(out, B, S, cfg.d_q), p.wo, out_like=x)
     return out, new_cache
 
 
@@ -263,6 +278,9 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    # a residual stream sharded on d (``pin_residual``) is gathered for
+    # the column-parallel weights, as GSPMD gathers it
+    x = pin_batch(x)
     if cfg.mlp_gated:
         h = F.silu(x @ p.w_gate) * (x @ p.w_up)
     else:

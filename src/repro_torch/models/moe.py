@@ -260,8 +260,10 @@ def _moe_apply_sharded(p: MoE, cfg: ModelConfig, x: DTensor, G: int,
     C = capacity(cfg, xg.shape[1], capacity_factor)
     h, slot, keep, gate_vals, probs, expert_idx, _ = _dispatch(
         router, cfg, xg, C)
+    # each shard's mean over D shards: a sum of local means / D (a
+    # Partial("avg") would hand every shard the whole gradient)
     density, mean_prob = (
-        DTensor.from_local(t, mesh, on_dp(Partial("avg"))).redistribute(
+        DTensor.from_local(t / D, mesh, on_dp(Partial())).redistribute(
             mesh, on_dp(Replicate()))
         for t in _balance(probs, expert_idx, E))
     aux_loss = E * torch.sum(density * mean_prob)

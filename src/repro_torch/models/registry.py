@@ -39,10 +39,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import pin_batch, replicate_plain
+from repro_torch.distributed.sharding import (pick_vocab, pin_batch,
+                                              pin_vocab, replicate_plain)
 from repro_torch.models import stacks, transformer
 
 Batch = Dict[str, Any]
@@ -63,10 +65,18 @@ def stack_kind(cfg: ModelConfig) -> str:
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token cross-entropy; logits promoted to fp32."""
+    """Mean token cross-entropy; logits promoted to fp32. On a DTensor
+    the log-sum-exp is spelled out, so a vocab-sharded row reduces its
+    max and its sum across devices (``torch.logsumexp`` would gather
+    the vocab first)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        m = pin_batch(logits.detach().amax(dim=-1, keepdim=True))
+        lse = pin_batch((logits - m).exp().sum(dim=-1)).log() + m[..., 0]
+        tgt = pin_batch(pick_vocab(logits, targets))
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
     nll = lse - tgt
     if mask is not None:
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
@@ -140,9 +150,7 @@ class Model:
             lg = lg[:, c.n_patches:]
         if c.family == "audio":
             targets = targets.movedim(1, 2)
-        # the loss gathers each target's logit along the vocab: sharded
-        # logits keep their batch shards and gather the vocab
-        lg = pin_batch(lg)
+        lg = pin_vocab(lg)
         with replicate_plain(params):
             ce = cross_entropy(lg, targets)
             return ce + 0.01 * aux, {"ce": ce, "aux": aux}

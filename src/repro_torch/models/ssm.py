@@ -21,9 +21,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import reshape
+from repro_torch.distributed.sharding import (P, fit, maybe_constrain,
+                                              on_shards, project, reshape,
+                                              residual_add)
 from repro_torch.models import layers as L
 
 State = Dict[str, torch.Tensor]
@@ -48,7 +51,37 @@ def ssd_chunked(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (b,s,h,p), final_state (b,h,n,p) fp32). s is padded to a
     multiple of L = min(chunk, s); padded steps have zero input and zero
-    log decay, so they leave the state as it is."""
+    log decay, so they leave the state as it is.
+
+    On DTensors the chunk loop runs on each device's shards
+    (``_on_head_shards``), so no collective runs inside it."""
+    return _on_head_shards(lambda *t: _ssd_chunked(*t[:4], chunk, t[4]),
+                           x, a, B, C, h_init)
+
+
+def _on_head_shards(fn, x, a, B, C, state):
+    """``fn(x, a, B, C, state)``, an SSD over x (b, [s,] h, p), on each
+    device's shards in the rules' layout of the SSM state
+    (``cache_specs``' "ssm"): the batch over (`pod`, `data`), the heads
+    over `model` where their count divides it (B and C with them when
+    they have a head each). Heads and batch rows are independent.
+    Where the heads are split and B and C are shared by all of them
+    (one group), each device reads B and C with its own heads only, so
+    their local gradients are partial sums over `model`."""
+    if not isinstance(x, DTensor):
+        return fn(x, a, B, C, state)
+    dp, hs = fit(x, 0, ("pod", "data")), fit(x, x.dim() - 2, "model")
+    gs = hs if B.shape[-2] == x.shape[-2] else None
+    partial = {2: "model", 3: "model"} if hs and not gs else None
+    seq = (None,) * (x.dim() - 3)
+    return on_shards(
+        fn, (x, a, B, C, state),
+        (P(dp, *seq, hs, None), P(dp, *seq, hs), P(dp, *seq, gs, None),
+         P(dp, *seq, gs, None), P(dp, hs, None, None)),
+        [P(dp, *seq, hs, None), P(dp, hs, None, None)], partial)
+
+
+def _ssd_chunked(x, a, B, C, chunk, h_init):
     b, s, h, p = x.shape
     n = B.shape[3]
     Lc = min(chunk, s)
@@ -101,6 +134,12 @@ def ssd_step(
     C: torch.Tensor,      # (b, g, n)
     state: torch.Tensor,  # (b, h, n, p) fp32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent step: (y (b,h,p), the new state). On DTensors it
+    runs on each device's shards (``_on_head_shards``)."""
+    return _on_head_shards(_ssd_step, x, a, B, C, state)
+
+
+def _ssd_step(x, a, B, C, state):
     h = x.shape[1]
     B, C = _heads(B, h).float(), _heads(C, h).float()
     decay = a.float().exp()[..., None, None]
@@ -179,6 +218,15 @@ def _causal_conv(w: torch.Tensor, bias: torch.Tensor, xc: torch.Tensor,
     return F.silu(out + bias.to(out.dtype)), new_state
 
 
+def _inner(t: torch.Tensor) -> torch.Tensor:
+    """A (b, s, d_in) tensor of the Mamba2 block in the rules' layout:
+    the batch over (`pod`, `data`), d_in over `model` (``w_z`` and
+    ``w_x`` are column-parallel), its gradient too."""
+    if not isinstance(t, DTensor):
+        return t
+    return maybe_constrain(t, ("pod", "data"), None, fit(t, 2, "model"))
+
+
 def mamba2_apply(
     p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     state: Optional[State] = None, decode: bool = False,
@@ -189,12 +237,14 @@ def mamba2_apply(
     nh, st, hd = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
     res = x
     x = L.rmsnorm(p.norm, x, cfg.norm_eps)
-    z = x @ p.w_z
-    x_c = x @ p.w_x
+    z = _inner(x @ p.w_z)
+    x_c = _inner(x @ p.w_x)
     bc = torch.cat([x @ p.w_B, x @ p.w_C], dim=-1)
-    dt_raw = x @ p.w_dt
+    # the rules shard dt_bias over the heads: so is this product
+    dt_raw = project(x, p.w_dt, out_like=p.dt_bias)
     x_c, new_conv = _causal_conv(p.conv_w, p.conv_b, x_c,
                                  None if state is None else state["conv"])
+    x_c = _inner(x_c)
     bc, new_conv_bc = _causal_conv(p.conv_w_bc, p.conv_b_bc, bc,
                                    None if state is None else state["conv_bc"])
     x_ssm = reshape(x_c, b, s, nh, hd)
@@ -212,8 +262,8 @@ def mamba2_apply(
         y, new_ssm = ssd_chunked(x_in, a_log, Bmat, Cmat, cfg.ssm_chunk, h0)
     y = y + x_ssm * p.D.to(x_ssm.dtype)[:, None]
     y = reshape(y, b, s, d_in)
-    y = L.rmsnorm(p.gate_norm, y * F.silu(z), cfg.norm_eps)
-    out = res + y @ p.out_proj
+    y = L.rmsnorm(p.gate_norm, _inner(y * F.silu(z)), cfg.norm_eps)
+    out = residual_add(res, y @ p.out_proj)
     new_state = None
     if state is not None or decode:
         new_state = {"ssm": new_ssm, "conv": new_conv,
@@ -293,7 +343,7 @@ def mlstm_apply(
     y = num / den.abs().clamp_min(1.0).to(num.dtype)
     y = reshape(y, b, s, up)
     y = L.rmsnorm(p.out_norm, y, cfg.norm_eps) * F.silu(z)
-    out = res + y @ p.w_down
+    out = residual_add(res, y @ p.w_down)
     new_state = {"C": newC} if (state is not None or decode) else None
     return out, new_state
 
@@ -327,15 +377,16 @@ def slstm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
     }
 
 
-def _slstm_cell(p: SLSTM, cfg: ModelConfig, xg: torch.Tensor,
+def _slstm_cell(r_gates: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor,
                 st: State) -> State:
-    """xg: (b, 4*up) pre-activation from the input path."""
+    """xg: (b, 4*up) pre-activation from the input path; ``r_gates`` the
+    block's recurrent weights."""
     H = cfg.n_heads
     b = xg.shape[0]
     up = xg.shape[1] // 4
     hd = up // H
-    h_prev = reshape(st["h"], b, H, hd).to(p.r_gates.dtype)
-    rec = reshape(torch.einsum("bhd,hdk->bhk", h_prev, p.r_gates), b, 4 * up)
+    h_prev = reshape(st["h"], b, H, hd).to(r_gates.dtype)
+    rec = reshape(torch.einsum("bhd,hdk->bhk", h_prev, r_gates), b, 4 * up)
     z_t, i_t, f_t, o_t = (xg + rec).float().chunk(4, dim=-1)
     z_t = torch.tanh(z_t)
     i_t = torch.sigmoid(i_t)
@@ -345,6 +396,34 @@ def _slstm_cell(p: SLSTM, cfg: ModelConfig, xg: torch.Tensor,
     n = f_t * st["n"] + i_t
     h = o_t * c / n.clamp_min(1.0)
     return {"c": c, "n": n, "h": h}
+
+
+def _slstm_scan(p: SLSTM, cfg: ModelConfig, xg: torch.Tensor, st: State
+                ) -> Tuple[torch.Tensor, State]:
+    """The cell over every step of xg (b, s, 4*up): (h of each step
+    (b, s, up), the last state). On DTensors the loop runs on each
+    device's shards in the rules' layout of the sLSTM state
+    (``cache_specs``' "c", "n", "h": the batch over (`pod`, `data`),
+    the rest whole), so no collective runs inside it."""
+    def scan(xg, r_gates, c, n, h):
+        st = {"c": c, "n": n, "h": h}
+        hs = []
+        for t in range(xg.shape[1]):
+            st = _slstm_cell(r_gates, cfg, xg[:, t], st)
+            hs.append(st["h"])
+        return torch.stack(hs, dim=1), st["c"], st["n"], st["h"]
+
+    args = (xg, p.r_gates, st["c"], st["n"], st["h"])
+    if not any(isinstance(t, DTensor) for t in args):
+        y, c, n, h = scan(*args)
+    else:
+        dp = fit(xg, 0, ("pod", "data"))
+        one, two = P(dp, None), P(dp, None, None)
+        y, c, n, h = on_shards(
+            scan, args, (two, P(None, None, None), one, one, one),
+            [two, one, one, one],
+            {1: dp} if dp else None)
+    return y, {"c": c, "n": n, "h": h}
 
 
 def slstm_apply(
@@ -360,16 +439,13 @@ def slstm_apply(
     st = state if state is not None else slstm_state(cfg, b,
                                                      device=x.device)
     if decode:
-        st = _slstm_cell(p, cfg, xg[:, 0], st)
+        st = _slstm_cell(p.r_gates, cfg, xg[:, 0], st)
         y = st["h"][:, None].to(x.dtype)
         new_state: Optional[State] = st
     else:
-        hs = []
-        for t in range(s):
-            st = _slstm_cell(p, cfg, xg[:, t], st)
-            hs.append(st["h"])
-        y = torch.stack(hs, dim=1).to(x.dtype)
+        y, st = _slstm_scan(p, cfg, xg, st)
+        y = y.to(x.dtype)
         new_state = st if state is not None else None
     y = L.rmsnorm(p.out_norm, y, cfg.norm_eps)
-    out = res + y @ p.w_down
+    out = residual_add(res, y @ p.w_down)
     return out, new_state

@@ -31,7 +31,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import embed, pin_batch
+from repro_torch.distributed.sharding import (embed, pin_residual,
+                                              residual_add, unembed)
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 
@@ -145,16 +146,17 @@ def xlstm_forward(
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[State], torch.Tensor]:
     """Returns (logits, state, aux_loss); the state is updated in place."""
-    x = pin_batch(embed(p.embed, tokens))
+    x = pin_residual(embed(p.embed, tokens), p.embed)
     for seg in range(parse_xlstm_pattern(cfg)[2]):
         if remat and state is None:
             x = checkpoint(_xlstm_segment, cfg, p, seg, x, None, False,
                            use_reentrant=False)
         else:
             x = _xlstm_segment(cfg, p, seg, x, state, decode)
+        x = pin_residual(x, p.embed)
     x = L.rmsnorm(p.final_norm, x, cfg.norm_eps)
     w = p.embed.t() if cfg.tie_embeddings else p.lm_head
-    return (x @ w.to(x.dtype), state,
+    return (unembed(x, w.to(x.dtype)), state,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -221,9 +223,9 @@ def _shared_block(cfg: ModelConfig, p: Zamba2, x: torch.Tensor,
     attn_out, _ = L.attention_apply(p.shared_attn, cfg, h, positions,
                                     cache=cache, cache_index=cache_index,
                                     causal=True, use_flash=use_flash)
-    x = x + attn_out
+    x = residual_add(x, attn_out)
     h = L.rmsnorm(p.shared_mlp_norm, x, cfg.norm_eps)
-    return x + L.mlp_apply(p.shared_mlp, cfg, h)
+    return residual_add(x, L.mlp_apply(p.shared_mlp, cfg, h))
 
 
 def _zamba2_layer(cfg: ModelConfig, p: Zamba2, i: int, x: torch.Tensor,
@@ -254,7 +256,7 @@ def zamba2_forward(
 ) -> Tuple[torch.Tensor, Optional[State], torch.Tensor]:
     """Returns (logits, state, aux_loss); the state (Mamba2 states and
     the shared block's KV caches) is updated in place."""
-    x = pin_batch(embed(p.embed, tokens))
+    x = pin_residual(embed(p.embed, tokens), p.embed)
     B, S = x.shape[0], x.shape[1]
     if cache_index is not None and decode:
         positions = torch.full((B, 1), cache_index, dtype=torch.int32,
@@ -269,6 +271,7 @@ def zamba2_forward(
             x = checkpoint(_zamba2_layer, *args, use_reentrant=False)
         else:
             x = _zamba2_layer(*args)
+        x = pin_residual(x, p.embed)
     x = L.rmsnorm(p.final_norm, x, cfg.norm_eps)
-    return (x @ p.lm_head.to(x.dtype), state,
+    return (unembed(x, p.lm_head.to(x.dtype)), state,
             torch.zeros((), dtype=torch.float32, device=x.device))

@@ -19,7 +19,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import embed, pin_batch, reshape
+from repro_torch.distributed.sharding import (embed, pin_residual, reshape,
+                                              residual_add, unembed)
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoE, moe_apply
 
@@ -98,7 +99,7 @@ def _embed_tokens(p: Transformer, cfg: ModelConfig,
 
 def _unembed(p: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = p.embed.t() if cfg.tie_embeddings else p.lm_head
-    logits = x @ w.to(x.dtype)
+    logits = unembed(x, w.to(x.dtype))
     if cfg.family == "audio":
         B, S = x.shape[0], x.shape[1]
         logits = reshape(logits, B, S, cfg.n_codebooks, cfg.vocab_padded)
@@ -117,13 +118,13 @@ def _layer_apply(cfg: ModelConfig, p_l: Block, x: torch.Tensor,
     attn_out, _ = L.attention_apply(
         p_l.attn, cfg, h, positions, cache=cache_l,
         cache_index=cache_index, causal=True, use_flash=use_flash)
-    x = x + attn_out
+    x = residual_add(x, attn_out)
     h = L.rmsnorm(p_l.mlp_norm, x, cfg.norm_eps)
     if cfg.family == "moe":
         out, aux = moe_apply(p_l.moe, cfg, h, einsum=use_flash is not None)
     else:
         out, aux = L.mlp_apply(p_l.mlp, cfg, h), None
-    return x + out, aux
+    return residual_add(x, out), aux
 
 
 # ----------------------------------------------------------------------
@@ -145,9 +146,10 @@ def forward(
     ``use_flash`` None takes the serving routes (kernels K1 and K2);
     False or True the reference's training routes (see
     ``layers.attention_apply``; the experts as einsums)."""
-    x = pin_batch(_embed_tokens(p, cfg, tokens))
+    x = pin_residual(_embed_tokens(p, cfg, tokens), p.embed)
     if cfg.family == "vlm" and patch_embeds is not None:
-        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+        x = pin_residual(torch.cat([patch_embeds.to(x.dtype), x], dim=1),
+                         p.embed)
     B, S = x.shape[0], x.shape[1]
     if cache_index is not None:
         positions = torch.full((B, 1), cache_index, dtype=torch.int32,
@@ -163,6 +165,7 @@ def forward(
             x, aux_l = checkpoint(_layer_apply, *args, use_reentrant=False)
         else:
             x, aux_l = _layer_apply(*args)
+        x = pin_residual(x, p.embed)
         if aux_l is not None:
             aux = aux + aux_l
     if last_only:

@@ -278,3 +278,140 @@ def test_roofline_matches_the_reference():
     ]
     assert roofline.markdown_table(rows) == j_roofline.markdown_table(rows)
     assert roofline.summarize(rows) == j_roofline.summarize(rows)
+
+
+# ---- layouts the rules give (the reference's under GSPMD) ----
+@pytest.mark.parametrize("heads", [(14, 2), (40, 8)], ids=["7to1", "5to1"])
+def test_multi_pod_gqa_train_runs(heads, no_kernel):
+    """A train step on the 2x16x16 mesh (its (32, 16) `pod_data` view)
+    with 7 or 5 query heads a kv head, as `qwen2-0.5b`, `internvl2-1b`
+    and `qwen3-14b` have: the masked scores' backward used to take a
+    view DTensor could not split (B = 256 over 512 ranks); attention now
+    runs on each device's shards."""
+    hq, hkv = heads
+    cfg = SMOKES["qwen2-0.5b"].replace(n_heads=hq, n_kv_heads=hkv, d_head=64)
+    cell = ShapeCell("train_4k", "train", 4096, 256)
+    with process_group("fake", 512):
+        mesh = make_production_mesh(multi_pod=True)
+        row = dryrun.analyze_cell("qwen2-0.5b", cfg, cell, mesh, "multi")
+    assert row["status"] == "ok" and row["flops_per_device"] > 0
+    assert no_kernel == [] and fa.launches == 0 and gm.launches == 0
+
+
+_REFERENCE_CELL = r'''
+import json, sys
+import repro.launch.dryrun as D
+from repro.configs import ARCHS
+from repro.configs.base import ShapeCell
+from repro.launch.mesh import make_production_mesh
+kw, cell, mesh_name = json.loads(sys.argv[1])
+cfg = ARCHS["qwen2-0.5b"].replace(**kw)
+mesh = make_production_mesh(multi_pod=mesh_name == "multi")
+row = D.analyze_cell("qwen2-0.5b", cfg, ShapeCell(*cell), mesh, mesh_name)
+print(json.dumps([row["flops_per_device"], row["collective_bytes_per_device"]]))
+'''
+
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+def test_flops_match_the_reference_dry_run(mesh_name):
+    """A train cell of `qwen2-0.5b` cut to 2 layers and d_model 128, with
+    its 14 query heads (not a divisor of the 16-way `model` axis) and 2
+    kv heads: per-device FLOPs equal the reference's ``analyze_cell`` on
+    the same mesh (run in a subprocess: ``repro.launch.dryrun`` forces
+    512 host devices at import). Measured equal; ``FLOP_RTOL``.
+    Collective bytes within [0.25, 2] of the reference's (measured 0.49
+    and 0.52: the reference's CPU compile all-reduces bf16 partial sums
+    in f32, twice the bytes of the port's bf16)."""
+    import os
+    import subprocess
+    import sys
+
+    kw = dict(n_layers=2, d_model=128, n_heads=14, n_kv_heads=2, d_head=64,
+              d_ff=256, vocab_size=1024)
+    cell = ("train_s", "train", 512, 64)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(sys.path))
+    out = subprocess.run([sys.executable, "-c", _REFERENCE_CELL,
+                          json.dumps([kw, cell, mesh_name])],
+                         capture_output=True, text=True, env=env, check=True)
+    ref_flops, ref_coll = json.loads(out.stdout.strip().splitlines()[-1])
+    world, multi = dryrun.MESHES[mesh_name]
+    cfg = dryrun.ARCHS["qwen2-0.5b"].replace(**kw)
+    with process_group("fake", world):
+        mesh = make_production_mesh(multi_pod=multi)
+        row = dryrun.analyze_cell("qwen2-0.5b", cfg, ShapeCell(*cell), mesh,
+                                  mesh_name)
+    assert row["flops_per_device"] == pytest.approx(ref_flops, rel=FLOP_RTOL)
+    assert 0.25 * ref_coll <= row["collective_bytes_per_device"] <= 2 * ref_coll
+
+
+def test_ssd_chunk_loop_runs_on_shards():
+    """``ssd_chunked`` on DTensors in the rules' layout (batch over
+    `data`, heads over `model`) on a fake 16x16 mesh: no collective at
+    any chunk count (2 or 8 chunks), and each device's FLOPs are those of
+    the plain function on its own shards."""
+    from repro_torch.distributed.sharding import placements, replicate_plain
+    from repro_torch.models.ssm import ssd_chunked
+
+    b, h, p, n, L = 32, 32, 16, 16, 32
+
+    def meta(shape):
+        return torch.empty(shape, device="meta")
+
+    counts = {}
+    with process_group("fake", 256):
+        mesh = make_production_mesh()
+
+        def put(shape, *spec):
+            return distribute_tensor(meta(shape), mesh,
+                                     placements(P(*spec), mesh))
+
+        for nc in (2, 8):
+            s = nc * L
+            args = (put((b, s, h, p), "data", None, "model", None),
+                    put((b, s, h), "data", None, "model"),
+                    put((b, s, 1, n), "data", None, None, None),
+                    put((b, s, 1, n), "data", None, None, None))
+            h0 = put((b, h, n, p), "data", "model", None, None)
+            with replicate_plain(args[0]), OpCounter() as c:
+                y, state = ssd_chunked(*args, L, h0)
+            assert y.placements == (Shard(0), Shard(2))
+            assert state.placements == (Shard(0), Shard(1))
+            with OpCounter() as plain:
+                ssd_chunked(*(meta(t.to_local().shape) for t in args), L,
+                            meta(h0.to_local().shape))
+            counts[nc] = c.metrics()
+            assert counts[nc]["hlo_flops"] == plain.flops
+    assert counts[2]["total_weighted_bytes"] == 0
+    assert counts[8]["total_weighted_bytes"] == 0
+    assert counts[8]["hlo_flops"] == 4 * counts[2]["hlo_flops"]
+
+
+def test_rmsnorm_keeps_a_feature_sharded_layout():
+    """``rmsnorm`` over a DTensor sharded on its features (Mamba2's gated
+    norm over d_in, or a residual stream sharded on d) on a fake 16x16
+    mesh, forward and backward: the output and the input's gradient keep
+    the input's layout, and the only collectives are all-reduces of the
+    variance (b, s, 1), one forward and one backward. Left to DTensor, the
+    variance's partial sum is reduce-scattered onto the batch and the
+    backward gathers the whole input."""
+    from repro_torch.distributed.sharding import placements, replicate_plain
+    from repro_torch.models.layers import RMSNorm, rmsnorm
+
+    b, s, d = 32, 64, 512
+    with process_group("fake", 256):
+        mesh = make_production_mesh()
+        spec = placements(P("data", None, "model"), mesh)
+        x = distribute_tensor(torch.empty((b, s, d), device="meta"), mesh,
+                              spec).requires_grad_(True)
+        norm = RMSNorm(d, device="meta")
+        norm.scale = torch.nn.Parameter(distribute_tensor(
+            norm.scale.detach(), mesh, placements(P("model"), mesh)))
+        with replicate_plain(x), OpCounter() as c:
+            y = rmsnorm(norm, x)
+            (gx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+        assert y.placements == x.placements == gx.placements
+        m = c.metrics()
+    var = (b // 16) * s * 4 * 2                     # f32 (b, s, 1), x2
+    assert m["all-reduce_count"] == 2
+    assert m["total_weighted_bytes"] == m["all-reduce_bytes"] == 2 * var
