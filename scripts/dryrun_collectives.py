@@ -1,5 +1,5 @@
-"""The collectives of one dry-run cell, op by op, in the port or in the
-reference.
+"""The collectives (or, with ``--flops``, the matmuls) of one dry-run
+cell, op by op, in the port or in the reference.
 
     PYTHONPATH=src python scripts/dryrun_collectives.py \\
         --arch qwen2-0.5b --shape train_4k --mesh single [--no-early-stop]
@@ -14,7 +14,10 @@ checkpoint recomputing each layer whole in the backward
 (``repro.launch.dryrun``; needs JAX, and forces 512 host devices when
 imported, so give it a process of its own): each collective of its
 partitioned HLO with its type, its operand and the trip count of the
-loop it sits in. Both end with the row's per-device totals.
+loop it sits in. ``--flops`` lists the matmuls instead: the port's
+grouped by op and operand shapes, the reference's each dot of its HLO
+with its result, its lhs and its trip count, each with its FLOPs. Both
+end with the row's per-device totals.
 """
 import argparse
 import collections
@@ -32,13 +35,21 @@ def _port(args) -> None:
     from repro_torch.launch.mesh import make_production_mesh, process_group
 
     seen = collections.Counter()
+    dots = collections.Counter()
     count = O.OpCounter.__torch_dispatch__
 
     def logged(self, func, types, args_=(), kwargs=None):
+        before = self.flops
         out = count(self, func, types, args_, kwargs)
+        if out is NotImplemented or self._propagation():
+            return out
+        if self.flops != before:
+            dots[(func._opname, tuple(tuple(a.shape) for a in args_
+                                      if isinstance(a, torch.Tensor)))] += \
+                self.flops - before
         kind = O._COLL_KIND.get(func._opname) if func.namespace in \
             O._COLL_NAMESPACES else None
-        if out is not NotImplemented and kind and not self._propagation():
+        if kind:
             t = O._tensors(out)[0]
             seen[(kind, str(t.dtype).replace("torch.", ""),
                   tuple(t.shape), t.element_size())] += 1
@@ -52,8 +63,13 @@ def _port(args) -> None:
                                   SHAPES_BY_NAME[args.shape],
                                   make_production_mesh(multi_pod=multi_pod),
                                   args.mesh)
+    if args.flops:
+        for (op, shapes), f in sorted(dots.items(), key=lambda kv: -kv[1]):
+            print(f"{op:10s} {str(shapes):60s} {f:.6e}")
     for (kind, dt, shape, size), n in sorted(
             seen.items(), key=lambda kv: -math.prod(kv[0][2]) * kv[1]):
+        if args.flops:
+            break
         b = math.prod(shape) * size * O._FACTORS[kind] * n
         print(f"{kind:15s} {dt:9s} {str(shape):24s} x{n:<5d} {b:.6e}")
     _totals(row, torch.__version__)
@@ -81,6 +97,23 @@ def _ref(args) -> None:
                           hlo["kw"].get("branch_scale", 1.0))
     for name, lines in comps.items():
         w = mult.get(name, 0.0)
+        if args.flops and w > 0:
+            table = {}
+            for ln in lines:
+                mm = re.match(r"\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=\s*(.*)", ln)
+                if mm:
+                    table[mm.group(1)] = mm.group(2)
+            for ln in lines:
+                if " dot(" in ln:
+                    m = H._DOT_RE.search(ln)
+                    lhs = H._split_top_level(m.group(2))[0].split(" ")[-1]
+                    ref = table.get(lhs.lstrip("%"), "")
+                    lhs_shape = H._SHAPE_RE.search(ref)
+                    print(f"dot {m.group(1)[:32]:32s} lhs "
+                          f"{lhs_shape.group(0) if lhs_shape else '?':24s} "
+                          f"x{w:<6g} {H._dot_flops(ln, table) * w:.6e} "
+                          f"in {name}")
+            continue
         for ln in lines if w > 0 else ():
             m = H._COLL_RE.search(ln)
             if not m or "-done(" in ln:
@@ -108,6 +141,8 @@ def main() -> None:
     ap.add_argument("--mesh", choices=("single", "multi"), default="single")
     ap.add_argument("--ref", action="store_true")
     ap.add_argument("--no-early-stop", action="store_true")
+    ap.add_argument("--flops", action="store_true",
+                    help="list the matmuls and their FLOPs, not collectives")
     args = ap.parse_args()
     (_ref if args.ref else _port)(args)
 

@@ -27,17 +27,23 @@ models state the layouts the rules imply: the residual stream after
 the embedding, each residual add and each layer (``pin_residual``,
 ``residual_add``), the logits (``pin_vocab``), and the blocks that run
 on each device's shards (``on_shards``: attention, the SSD chunk loop,
-the sLSTM scan, the embedding lookup). A pin holds a gradient to the
-same layout, as GSPMD lays out a cotangent like its primal. On plain
-tensors every one of them is the plain op.
+the sLSTM scan, the embedding lookup, a decode step's attention over a
+cache sharded on its sequence, ``seq_on_shards``). A pin holds a
+gradient to the same layout, as GSPMD lays out a cotangent like its
+primal. Heads that span several devices of `model` (xLSTM's 4 on 16)
+take a mesh whose `model` is split over them (``MODEL_HEADS`` x
+``MODEL_HD``, ``split_heads``), where GSPMD splits one dim two ways.
+On plain tensors every one of them is the plain op.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from typing import Dict, Iterator, Mapping, Tuple, Union
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -46,6 +52,10 @@ from torch.distributed.tensor.experimental import implicit_replication
 from repro_torch.configs.base import ModelConfig, ShapeCell
 
 MODEL_AX = "model"
+# the two dims of a `model` split over an mLSTM's heads
+# (``launch.mesh.dtensor_mesh(..., model_heads=H)``): the heads, outer,
+# and each head's slice of its dims
+MODEL_HEADS, MODEL_HD = "model_h", "model_d"
 
 MeshLike = Union[DeviceMesh, Mapping[str, int]]
 
@@ -62,17 +72,24 @@ class P(tuple):
 
 
 def mesh_shape(mesh: MeshLike) -> Dict[str, int]:
-    """{axis name: size} of a ``DeviceMesh`` or of a mapping."""
+    """{axis name: size} of a ``DeviceMesh`` or of a mapping; a `model`
+    split over heads counts as one `model` axis too."""
     if isinstance(mesh, DeviceMesh):
-        return {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}
+        out = {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}
+        if splits_model(mesh):
+            out[MODEL_AX] = out[MODEL_HEADS] * out[MODEL_HD]
+        return out
     return dict(mesh)
 
 
 def mesh_axes(mesh: DeviceMesh) -> Tuple[Tuple[str, ...], ...]:
     """The mesh axes each dim of a ``DeviceMesh`` carries: a dim whose
     name joins axis names with "_" (torch's name for flattened dims, as
-    in ``launch.mesh.dtensor_mesh``'s "pod_data") carries each of them."""
-    return tuple(tuple(n.split("_")) for n in mesh.mesh_dim_names)
+    in ``launch.mesh.dtensor_mesh``'s "pod_data") carries each of them,
+    and its own name, which names that dim alone (a split `model`'s
+    ``MODEL_HEADS`` and ``MODEL_HD`` each carry `model`)."""
+    return tuple(tuple(n.split("_")) + ((n,) if "_" in n else ())
+                 for n in mesh.mesh_dim_names)
 
 
 def dp_axes(mesh: MeshLike):
@@ -319,6 +336,31 @@ def cache_specs(cfg: ModelConfig, cell: ShapeCell, mesh: MeshLike, cache,
     return _map_with_path(spec, cache)
 
 
+def carried_specs(spec_tree, mesh: DeviceMesh):
+    """``cache_specs``' tree (sanitized) as the port carries an xLSTM's
+    state between steps on ``mesh``, where its blocks leave it and where
+    the reference's decode step carries it through its layer scan: the
+    sLSTM's c, n and h (..., B, up) on their units over `model`
+    (``ssm._slstm_on_units``), and, where ``mesh`` splits `model` over the
+    mLSTM's heads, its matrix memory C (..., B, H, n, p) on (head, n)
+    shards (``ssm._on_head_shards``). The reference's step takes them
+    replicated over `model` (``cache_specs``) and slices each device's
+    shard for free; a state written in place keeps one layout, and a
+    replicated one would be gathered whole at every write. Every other
+    leaf keeps its spec."""
+    M = model_rank(mesh)[1]
+
+    def spec(keys, s: P) -> P:
+        name = keys[-1] if keys else None
+        if name == "C" and splits_model(mesh):
+            return P(*s[:-3], MODEL_HEADS, MODEL_HD, None)
+        if name in ("c", "n", "h") and M > 1:
+            return P(*s[:-1], MODEL_AX)
+        return s
+
+    return _map_with_path(spec, spec_tree)
+
+
 def state_specs(cfg: ModelConfig, mesh: MeshLike, param_spec_tree):
     """Train state = {params, m, v, step}: moments follow params."""
     return {
@@ -422,9 +464,13 @@ def maybe_constrain(x, *entries):
     axes, redistribute it, and in a backward its gradient, to the spec
     of ``entries`` (axes the mesh lacks are dropped, as in the
     reference), so layers can call it unconditionally; single-device
-    paths are unaffected."""
+    paths are unaffected. An entry whose shards do not divide its dim is
+    dropped (``fit``), as ``sanitize_spec`` drops it from an input: a
+    batch of 1 stays whole, where DTensor would shard it unevenly and
+    gather its padded shards back."""
     if not isinstance(x, DTensor):
         return x
+    entries = [fit(x, i, e) for i, e in enumerate(entries)]
     return _pin(x, _on_mesh(x.device_mesh, entries))
 
 
@@ -459,10 +505,40 @@ def reduced_like(v, x):
                          else p for p in x.placements))
 
 
-def _model_dim(mesh: DeviceMesh):
-    """The index of the mesh dim carrying `model`, or None."""
-    return next((i for i, axes in enumerate(mesh_axes(mesh))
-                 if MODEL_AX in axes), None)
+def model_rank(mesh: DeviceMesh) -> Tuple[int, int]:
+    """(this device's rank along `model`, the size of `model`): over
+    every mesh dim carrying it, the first outermost (a split `model`'s
+    ``MODEL_HEADS`` and ``MODEL_HD``); (0, 1) on a mesh without it."""
+    r, n = 0, 1
+    for i, axes in enumerate(mesh_axes(mesh)):
+        if MODEL_AX in axes:
+            r, n = r * mesh.size(i) + mesh.get_local_rank(i), n * mesh.size(i)
+    return r, n
+
+
+def splits_model(mesh: DeviceMesh) -> bool:
+    """Whether ``mesh`` splits `model` into ``MODEL_HEADS`` and
+    ``MODEL_HD``."""
+    return MODEL_HD in mesh.mesh_dim_names
+
+
+def model_group(mesh: DeviceMesh):
+    """The group of a collective over the whole of `model` on ``mesh``, as
+    the functional collectives take it: its `model` dim, or the flattened
+    one that ``launch.mesh.split_model`` keeps for a split `model`."""
+    if MODEL_AX in mesh.mesh_dim_names:
+        return (mesh, mesh.mesh_dim_names.index(MODEL_AX))
+    return _FLAT_MODEL[mesh]
+
+
+# A split mesh's flattened `model` dim, kept as torch asks (slicing it
+# from the root mesh by name is deprecated)
+_FLAT_MODEL: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def keep_model_group(mesh: DeviceMesh, flat: DeviceMesh) -> None:
+    """Record ``flat``, ``mesh``'s `model` flattened to one dim."""
+    _FLAT_MODEL[mesh] = flat
 
 
 def _partial(pl, mesh: DeviceMesh, entry) -> tuple:
@@ -501,7 +577,7 @@ class _ContiguousGrad(torch.autograd.Function):
 
 
 def on_shards(fn, args, specs, out_specs, partial_grads=None,
-              partial_out: bool = False):
+              partial_out=False):
     """``fn(*args)`` on each device's shards: the port's ``shard_map``.
 
     Each DTensor of ``args`` is brought to its spec in ``specs`` (entries
@@ -512,7 +588,8 @@ def on_shards(fn, args, specs, out_specs, partial_grads=None,
     mesh axes} for arguments replicated there whose local gradients are
     partial sums there, because each device reads another part of them
     (another kv head, another batch shard). ``partial_out``: the outputs
-    are partial sums over `model` (each device adds its part).
+    are partial sums over `model` (each device adds its part); or, with
+    a list of outputs, a list of an entry for each (None: not partial).
 
     DTensor propagates layouts op by op and may shard a replicated dim
     on the way (a split costs no communication), where GSPMD keeps the
@@ -537,16 +614,19 @@ def on_shards(fn, args, specs, out_specs, partial_grads=None,
             grad = _partial(a.placements, mesh, partial_grads[i])
         local.append(_ContiguousGrad.apply(a.to_local(grad_placements=grad)))
 
-    def wrap(o, spec):
+    def wrap(o, spec, over):
         pl = _on_mesh(mesh, spec)
-        if partial_out:
-            pl = _partial(pl, mesh, MODEL_AX)
+        if over:
+            pl = _partial(pl, mesh, over)
         return DTensor.from_local(o, mesh, pl)
 
     out = fn(*local)
+    whole = MODEL_AX if partial_out is True else None
     if not isinstance(out_specs, list):
-        return wrap(out, out_specs)
-    return tuple(wrap(o, s) for o, s in zip(out, out_specs))
+        return wrap(out, out_specs, whole)
+    overs = partial_out if isinstance(partial_out, list) else \
+        [whole] * len(out_specs)
+    return tuple(wrap(o, s, w) for o, s, w in zip(out, out_specs, overs))
 
 
 def gqa_on_shards(attn, q, k, v, *rest):
@@ -557,33 +637,120 @@ def gqa_on_shards(attn, q, k, v, *rest):
     reference's attention runs under GSPMD (``wq``, ``wk`` and ``wv``
     are column-parallel only where the heads divide). Where q's heads
     divide `model` and the kv heads do not, each device takes the one
-    kv head its q heads share. Identity on plain tensors; a cache
-    sharded on another dim (its sequence, or its head dim) is left to
-    DTensor's propagation."""
+    kv head its q heads share. Identity on plain tensors. A cache
+    sharded on its sequence takes ``seq_on_shards``; one sharded on its
+    head dim (the ``kv_shard_hd`` option) is left to DTensor's
+    propagation."""
     if not isinstance(q, DTensor) or any(
             isinstance(p, Shard) and p.dim not in (0, 2)
             for p in k.placements):
         return attn(q, k, v, *rest)
     dp = fit(q, 0, ("pod", "data"))
+    (spec_q, spec_kv), fn, partial = _heads_on_shards(attn, q, k, dp)
+    return on_shards(fn, (q, k, v) + rest,
+                     (spec_q, spec_kv, spec_kv) + (P(),) * len(rest),
+                     spec_q, partial)
+
+
+def _heads_on_shards(attn, q, k, dp):
+    """((q's spec, k's and v's), ``attn`` on a device's heads, partial
+    gradients) of an attention over q (B, S, H, hd) and k, v (B, T, Hkv,
+    hd) whose heads the rules shard over `model` where their count
+    divides it (``gqa_on_shards``); the kv heads' specs leave dim 1
+    whole."""
     hq, hk = fit(q, 2, MODEL_AX), fit(k, 2, MODEL_AX)
     H, Hkv = q.shape[2], k.shape[2]
     g = H // Hkv
-    mesh, m = q.device_mesh, _model_dim(q.device_mesh)
-    n_loc = H // mesh.size(m) if hq and m is not None else H
+    r, M = model_rank(q.device_mesh)
+    n_loc = H // M if hq else H
     if hq and not hk and g % n_loc:
         hq = None                 # a device's q heads span two kv heads
     fn, partial = attn, None
     if hq and not hk:
-        lo = mesh.get_local_rank(m) * n_loc // g
+        lo = r * n_loc // g
 
-        def fn(q_l, k_l, v_l, *r):
-            return attn(q_l, k_l[:, :, lo:lo + 1], v_l[:, :, lo:lo + 1], *r)
+        def fn(q_l, k_l, v_l, *rest):
+            return attn(q_l, k_l[:, :, lo:lo + 1], v_l[:, :, lo:lo + 1], *rest)
 
         partial = {1: MODEL_AX, 2: MODEL_AX}
-    spec_q, spec_kv = P(dp, None, hq, None), P(dp, None, hk, None)
-    return on_shards(fn, (q, k, v) + rest,
-                     (spec_q, spec_kv, spec_kv) + (P(),) * len(rest),
-                     spec_q, partial)
+    return (P(dp, None, hq, None), P(dp, None, hk, None)), fn, partial
+
+
+def seq_sharded(cache) -> bool:
+    """Whether ``cache`` (B, T, ...) is a DTensor sharded on its sequence
+    (a batch-1 cell's KV cache, ``cache_specs``)."""
+    return isinstance(cache, DTensor) and any(
+        isinstance(p, Shard) and p.dim == 1 for p in cache.placements)
+
+
+def _seq_slice(cache: DTensor) -> Tuple[int, int, Tuple[int, ...]]:
+    """(first position, positions) of this device's slice of ``cache``'s
+    sequence (dim 1), and the mesh dims that shard it (the first
+    outermost, as DTensor lays them out)."""
+    mesh, idx, n = cache.device_mesh, 0, 1
+    dims = tuple(i for i, p in enumerate(cache.placements)
+                 if isinstance(p, Shard) and p.dim == 1)
+    for i in dims:
+        idx, n = idx * mesh.size(i) + mesh.get_local_rank(i), n * mesh.size(i)
+    if cache.shape[1] % n:
+        raise ValueError(f"{n} shards do not divide the sequence "
+                         f"{cache.shape[1]}")
+    T = cache.shape[1] // n
+    return idx * T, T, dims
+
+
+def write_at(cache, index: int, value) -> None:
+    """``cache[:, index:index + 1] = value``, in place: a decode step's
+    new key or value (B, 1, ...) into its cache (B, T, ...). A cache
+    sharded on its sequence is written on the device whose slice holds
+    ``index``, and nowhere else, as XLA's dynamic-update-slice of a
+    sharded dim writes; DTensor would gather the whole cache to write
+    it."""
+    if not seq_sharded(cache):
+        cache[:, index:index + 1] = value
+        return
+    start, T, dims = _seq_slice(cache)
+    value = _pin(value, tuple(Replicate() if i in dims else p
+                              for i, p in enumerate(cache.placements)))
+    if start <= index < start + T:
+        cache.to_local()[:, index - start:index - start + 1] = value.to_local()
+
+
+def seq_on_shards(parts, q, k, v, cache_index: int):
+    """A decode step's attention of q (B, 1, H, hd) over a KV cache k, v
+    (B, T, Hkv, hd) sharded on its sequence, on each device's slice: the
+    flash-decoding combine, as GSPMD partitions the reference's softmax
+    over a sharded sequence. Each device scores q against its own keys,
+    their positions offset by its slice's start and masked past
+    ``cache_index``; ``parts(q, k, v, valid)`` returns its running max m,
+    the sum of exp(s - m) l and the unnormalised p·v o, all fp32. An
+    all-reduce max of m over the mesh dims that shard the sequence, then
+    all-reduced sums of l and o rescaled by exp(m - max), give the
+    softmax's output. The heads are laid out as ``gqa_on_shards`` lays
+    them out. ``cache_index`` is a host int."""
+    dp = fit(q, 0, ("pod", "data"))
+    (spec_q, spec_kv), fn, partial = _heads_on_shards(parts, q, k, dp)
+    start, T, dims = _seq_slice(k)
+    mesh = k.device_mesh
+    seq = tuple(mesh.mesh_dim_names[i] for i in dims)
+
+    def local(q_l, k_l, v_l):
+        pos = start + torch.arange(T, device=k_l.device)
+        m, l, o = fn(q_l, k_l, v_l, pos <= cache_index)
+        top = m
+        for i in dims:
+            top = funcol.all_reduce(top, "max", (mesh, i))
+        scale = torch.exp(m - top)
+        l, o = l * scale, o * scale[..., None].movedim(-2, 1)
+        for i in dims:
+            l = funcol.all_reduce(l, "sum", (mesh, i))
+            o = funcol.all_reduce(o, "sum", (mesh, i))
+        out = o / l[..., None].movedim(-2, 1)
+        return out.reshape(q_l.shape).to(q_l.dtype)
+
+    spec_k = P(dp, seq if len(seq) > 1 else seq[0], *spec_kv[2:])
+    return on_shards(local, (q, k, v), (spec_q, spec_k, spec_k), spec_q,
+                     partial)
 
 
 def _gathered_for(x: DTensor, shape) -> DTensor:
@@ -656,6 +823,64 @@ def reshape(x, *shape):
     return _Reshape.apply(x, torch.Size(shape))
 
 
+def split_heads(t, n_heads: int):
+    """``t`` (b, s, H*hd) viewed as (b, s, H, hd). A DTensor keeps the
+    rules' layout, its features over `model`: where each device holds
+    whole heads, ``reshape`` keeps them; where the heads span several
+    devices (an mLSTM's 4 heads on 16), the mesh must split `model` over
+    the heads (``launch.mesh.dtensor_mesh(..., model_heads=H)``) and each
+    device's features are its slice of one head's dims, the heads over
+    ``MODEL_HEADS`` and hd over ``MODEL_HD``: GSPMD carries the feature
+    split through the reshape as a 2-D split, where DTensor's view would
+    gather the heads. Raises for a layout neither holds."""
+    b, s, f = t.shape
+    hd = f // n_heads
+    if not (isinstance(t, DTensor) and fit(t, 2, MODEL_AX)):
+        return reshape(t, b, s, n_heads, hd)
+    mesh = t.device_mesh
+    M = model_rank(mesh)[1]
+    if not splits_model(mesh):
+        if n_heads % M:
+            raise ValueError(
+                f"{n_heads} heads split over `model` {M}: place them on a "
+                f"mesh whose `model` is split over the heads")
+        return reshape(t, b, s, n_heads, hd)
+    if mesh.size(mesh.mesh_dim_names.index(MODEL_HEADS)) != n_heads:
+        raise ValueError(f"{n_heads} heads on a `model` split "
+                         f"{tuple(mesh.shape)} {mesh.mesh_dim_names}")
+    dp = fit(t, 0, ("pod", "data"))
+    return on_shards(lambda x: x.reshape(x.shape[0], s, 1, hd * n_heads // M),
+                     (t,), (P(dp, None, MODEL_AX),),
+                     P(dp, None, MODEL_HEADS, MODEL_HD))
+
+
+def head_whole(t):
+    """``t`` (b, s, H, x) with each head's last dim whole on its devices:
+    on a mesh whose `model` is split over the heads, gathered (or, a
+    partial sum, all-reduced) over ``MODEL_HD``, the rest as it is;
+    anything else comes back as it is."""
+    if not (isinstance(t, DTensor) and splits_model(t.device_mesh)):
+        return t
+    dp = fit(t, 0, ("pod", "data"))
+    return maybe_constrain(t, dp, *([None] * (t.dim() - 3)), MODEL_HEADS,
+                           None)
+
+
+def merge_heads(t):
+    """``t`` (b, s, H, hd) viewed as (b, s, H*hd), the inverse of
+    ``split_heads``: on a mesh whose `model` is split over the heads,
+    each device keeps its slice of its head's dims (a slice of a whole
+    head, no communication), its features over `model`."""
+    b, s, H, hd = t.shape
+    if not (isinstance(t, DTensor) and splits_model(t.device_mesh)):
+        return reshape(t, b, s, H * hd)
+    dp = fit(t, 0, ("pod", "data"))
+    M = model_rank(t.device_mesh)[1]
+    return on_shards(lambda x: x.reshape(x.shape[0], s, H * hd // M), (t,),
+                     (P(dp, None, MODEL_HEADS, MODEL_HD),),
+                     P(dp, None, MODEL_AX))
+
+
 def embed(table, tokens):
     """``table[tokens]``, the rows of an embedding table. A sharded
     table is read on each device's shards, as GSPMD partitions the
@@ -693,6 +918,41 @@ def pin_batch(x):
     like GSPMD's, and left alone it keeps a vocab-sharded table's lookup
     sharded on d_model and spreads that through every layer."""
     return maybe_constrain(x, ("pod", "data"), *([None] * (x.dim() - 1)))
+
+
+class _Gather(torch.autograd.Function):
+    """A DTensor brought to placements ``want``, its gradient returned in
+    the input's layout: the transpose of an all-gather is a
+    reduce-scatter, as GSPMD transposes it. Pinned to ``want`` instead
+    (``maybe_constrain``), the gradient would reach a column-parallel
+    product replicated, and DTensor would gather the weight for it."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.placements = tuple(x.placements)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
+
+
+def gather_features(x):
+    """``x`` (b, ..., f) with its batch over (`pod`, `data`) and every
+    other dim whole, gathered for a column-parallel product (the sLSTM's
+    input path before ``w_gates``); its gradient comes back in x's own
+    layout. Identity on a plain tensor."""
+    if not isinstance(x, DTensor):
+        return x
+    want = _on_mesh(x.device_mesh, [fit(x, 0, ("pod", "data"))]
+                    + [None] * (x.dim() - 1))
+    if tuple(x.placements) == want:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Gather.apply(x, want)
+    return x.redistribute(x.device_mesh, want)
 
 
 def pin_residual(x, table):
@@ -770,11 +1030,10 @@ def kv_heads(n_heads: int, n_kv: int, hd: int, *ws):
     w0 = ws[0]
     if not isinstance(w0, DTensor):
         return (n_kv, *ws)
-    mesh, m = w0.device_mesh, _model_dim(w0.device_mesh)
-    M = 1 if m is None else mesh.size(m)
+    r, M = model_rank(w0.device_mesh)
     if n_heads % M or not n_kv % M or (n_heads // n_kv) % (n_heads // M):
         return (n_kv, *ws)
-    lo = mesh.get_local_rank(m) * n_kv // M
+    lo = r * n_kv // M
 
     def virtual(w):
         if w is None:
@@ -808,10 +1067,9 @@ def cp_on_shards(attn, q, k, v, chunk):
     on plain tensors."""
     if not isinstance(q, DTensor):
         return attn(q, k, v, chunk)
-    mesh, m = q.device_mesh, _model_dim(q.device_mesh)
+    r, M = model_rank(q.device_mesh)
     seq = fit(q, 1, MODEL_AX)
-    start = (mesh.get_local_rank(m) * (q.shape[1] // mesh.size(m))
-             if seq and m is not None else 0)
+    start = r * (q.shape[1] // M) if seq else 0
     spec_q, whole = P(None, seq, None, None), P(None, None, None, None)
     out = on_shards(lambda q_l, k_l, v_l: attn(q_l, k_l, v_l, chunk,
                                                q_start=start),
@@ -844,9 +1102,9 @@ def pick_vocab(logits, index):
 def _vocab_slice(mesh: DeviceMesh, vocab: int) -> Tuple[int, int]:
     """(first id, ids) of this device's slice of a vocab sharded over
     `model`."""
-    m = _model_dim(mesh)
-    n = vocab // mesh.size(m)
-    return mesh.get_local_rank(m) * n, n
+    r, M = model_rank(mesh)
+    n = vocab // M
+    return r * n, n
 
 
 def _in_slice(idx, lo: int, n: int):

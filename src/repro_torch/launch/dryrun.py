@@ -20,10 +20,12 @@ rules of ``distributed.sharding``; the train step (forward, backward,
 AdamW), the prefill or the decode step then runs once under
 ``launch.op_analysis.OpCounter``, which counts what rank 0 runs, and the
 counts are divided by ``H100Roofline``: spec-sheet constants, so the
-terms model a 256- or 512-GPU cluster and measure nothing. On the
-multi-pod mesh the DTensors live on its (pod*data, model) view
-(``launch.mesh.dtensor_mesh``): DTensor's redistribution planner takes
-minutes a cell on three mesh dims.
+terms model a 256- or 512-GPU cluster and measure nothing. A cell's
+DTensors live on ``cell_mesh``'s mesh: on the multi-pod mesh its
+(pod*data, model) view (``launch.mesh.dtensor_mesh``: DTensor's
+redistribution planner takes minutes a cell on three mesh dims), but
+the whole (2, 16, 16) mesh for a batch-1 cache sharded 16 ways on its
+sequence; xLSTM's `model` split over the mLSTM's heads.
 
 The steps take the reference's routes (``serve_kernels=False``): masked
 ``_sdpa``, or ``_sdpa_chunked`` under the ``flash``/``flash_cp`` opts,
@@ -59,6 +61,8 @@ from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.distributed.sharding import (
     batch_specs,
     cache_specs,
+    _map_with_path,
+    carried_specs,
     param_specs,
     placements,
     sanitize_spec,
@@ -81,14 +85,34 @@ DTYPE = torch.bfloat16
 MESHES = {"single": (256, False), "multi": (512, True)}
 
 
-def input_specs(cfg: ModelConfig, cell: ShapeCell, mesh) -> Dict[str, Any]:
+def cell_mesh(cfg: ModelConfig, cell: ShapeCell, mesh):
+    """The mesh this cell's DTensors live on (``dtensor_mesh``): `model`
+    split over an mLSTM's heads where each head spans several devices of
+    it; `pod` and `data` kept apart where the cell's cache specs name
+    `data` alone (a batch-1 KV cache sharded on its sequence)."""
+    M = mesh.size(mesh.mesh_dim_names.index("model"))
+    heads = cfg.n_heads if (cfg.xlstm_pattern and M > cfg.n_heads
+                            and M % cfg.n_heads == 0) else 0
+    data_alone = False
+    if cell.kind != "train":
+        cache = build_model(cfg).init_cache(cell.global_batch, cell.seq_len,
+                                            DTYPE, device="meta")
+        specs = []
+        _map_with_path(lambda _, sp: specs.append(sp),
+                       cache_specs(cfg, cell, mesh, cache))
+        data_alone = any("data" in sp for sp in specs)
+    return dtensor_mesh(mesh, model_heads=heads, flatten_dp=not data_alone)
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell, mesh,
+                dmesh=None) -> Dict[str, Any]:
     """{name: (shape, dtype, placements or None)} for every model input
     of this cell: the stand-ins the dry run places, sanitized; the
-    placements are on ``dtensor_mesh(mesh)``."""
+    placements are on ``dmesh`` (by default ``cell_mesh``'s)."""
     model = build_model(cfg)
     shapes = model.batch_shapes(cell.kind, cell.global_batch, cell.seq_len)
     specs = batch_specs(cfg, cell.kind, mesh)
-    dmesh = dtensor_mesh(mesh)
+    dmesh = dmesh or cell_mesh(cfg, cell, mesh)
     out = {}
     for k, (shp, dt) in shapes.items():
         pl = None
@@ -154,12 +178,12 @@ def analyze_cell(
                         prefill_last_only="last_logit" in opts,
                         serve_kernels=False)
     n_chips = mesh.size()
-    dmesh = dtensor_mesh(mesh)
+    dmesh = cell_mesh(cfg, cell, mesh)
     gen = torch.Generator().manual_seed(0)
     counter = OpCounter()
 
     batch: Dict[str, Any] = {}
-    for k, (shp, dt, pl) in input_specs(cfg, cell, mesh).items():
+    for k, (shp, dt, pl) in input_specs(cfg, cell, mesh, dmesh).items():
         if k == "cache_index":
             # read on the host (``int()``): a value, not a tensor
             batch[k] = cell.seq_len - 1
@@ -189,7 +213,8 @@ def analyze_cell(
                                  device="meta")
         c_spec = cache_specs(cfg, cell, mesh, cache,
                              kv_hd_shard="kv_shard_hd" in opts)
-        cache = reshard_state(cache, dmesh, sanitize_tree(cache, c_spec, mesh))
+        cache = reshard_state(cache, dmesh, carried_specs(
+            sanitize_tree(cache, c_spec, mesh), dmesh))
         arg_bytes += _local_bytes(params) + _local_bytes(cache)
         alias_bytes = _local_bytes(cache)
         with counter:

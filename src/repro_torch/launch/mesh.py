@@ -26,6 +26,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import (MODEL_HD, MODEL_HEADS,
+                                              keep_model_group)
 
 SINGLE_POD: Tuple[Tuple[int, ...], Tuple[str, ...]] = ((16, 16),
                                                         ("data", "model"))
@@ -87,25 +89,59 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
     return init_device_mesh("cpu", shape, mesh_dim_names=axes)
 
 
-def dtensor_mesh(mesh: DeviceMesh) -> DeviceMesh:
-    """The mesh a production mesh's DTensors live on: the (16, 16) mesh
-    itself; for the (2, 16, 16) mesh, a (32, 16) mesh over the same
-    ranks in the same order, its first dim "pod_data" carrying both
-    data-parallel axes (the rules shard them together). DTensor's
-    redistribution planner takes minutes a cell on three mesh dims; on
-    two, seconds. The one rule that names `data` alone (a batch-1
-    cell's KV cache sharded on its sequence) then shards over both."""
-    if mesh.mesh_dim_names != MULTI_POD[1]:
+def dtensor_mesh(mesh: DeviceMesh, model_heads: int = 0,
+                 flatten_dp: bool = True) -> DeviceMesh:
+    """The mesh a production mesh's DTensors live on, over the same ranks
+    in the same order.
+
+    - The (2, 16, 16) mesh becomes a (32, 16) one whose first dim
+      "pod_data" carries both data-parallel axes (the rules shard them
+      together): DTensor's redistribution planner takes minutes a cell
+      on three mesh dims, on two seconds. ``flatten_dp=False`` keeps
+      `pod` and `data` apart, for a cell whose rules name `data` alone
+      (a batch-1 cell's KV cache, sharded 16 ways on its sequence and
+      replicated over `pod`, as the reference shards it).
+    - ``model_heads`` (0: none) splits `model` into "model_h"
+      (``model_heads`` devices, outermost) and "model_d" (the rest): an
+      mLSTM whose heads each span several devices of `model` runs on
+      (head, head-dim) shards, one placement on each."""
+    names, shape = list(mesh.mesh_dim_names), list(mesh.shape)
+    if names == list(MULTI_POD[1]) and flatten_dp:
+        names, shape = ["pod_data"] + names[2:], [shape[0] * shape[1]] + shape[2:]
+    if not model_heads and len(names) == mesh.ndim:
         return mesh
-    pod, data, model = mesh.shape
-    return init_device_mesh(mesh.device_type, (pod * data, model),
-                            mesh_dim_names=("pod_data", "model"))
+    return _model_split(mesh.device_type, shape, names, model_heads)
 
 
-def make_local_mesh(model: int = 1, device: DeviceLike = None) -> DeviceMesh:
+def _model_split(device_type: str, shape, names, model_heads: int
+                 ) -> DeviceMesh:
+    """A mesh of ``shape`` and ``names`` over the running group's ranks
+    in order, its "model" dim split in two when ``model_heads``."""
+    if model_heads:
+        i = names.index("model")
+        if shape[i] % model_heads:
+            raise ValueError(f"{model_heads} heads do not divide model "
+                             f"{shape[i]}")
+        shape = shape[:i] + [model_heads, shape[i] // model_heads] + shape[i + 1:]
+        names = names[:i] + [MODEL_HEADS, MODEL_HD] + names[i + 1:]
+    out = init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(names))
+    return split_model(out) if model_heads else out
+
+
+def split_model(mesh: DeviceMesh) -> DeviceMesh:
+    """``mesh``, its "model_h" and "model_d" dims also flattened into one
+    "model" dim (``sharding.model_group``): the group of a collective
+    over the whole of `model`."""
+    keep_model_group(mesh, mesh[MODEL_HEADS, MODEL_HD]._flatten("model"))
+    return mesh
+
+
+def make_local_mesh(model: int = 1, device: DeviceLike = None,
+                    model_heads: int = 0) -> DeviceMesh:
     """A (`data`, `model`) mesh over the ranks of the running group
     (``data`` = world size // ``model``), on ``cuda`` unless
-    ``device="cpu"``; raises without a card."""
+    ``device="cpu"``; raises without a card. ``model_heads`` splits
+    `model` as ``dtensor_mesh`` does."""
     dev = resolve_device(device)
     if not dist.is_initialized():
         raise RuntimeError("make_local_mesh needs a running process group: "
@@ -115,6 +151,5 @@ def make_local_mesh(model: int = 1, device: DeviceLike = None) -> DeviceMesh:
         raise ValueError(f"model axis {model} does not divide {n} ranks")
     if dev.type == "cuda":
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
-    return init_device_mesh(dev.type, (n // model, model),
-                            mesh_dim_names=("data", "model"))
-
+    return _model_split(dev.type, [n // model, model], ["data", "model"],
+                        model_heads)

@@ -26,7 +26,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (cp_on_shards, gqa_on_shards,
                                               kv_heads, kv_whole, pin_batch,
-                                              project, reduced_like, reshape)
+                                              project, reduced_like, reshape,
+                                              seq_on_shards, seq_sharded,
+                                              write_at)
 from repro_torch.kernels import ops as kops
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
@@ -202,6 +204,25 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return reshape(out, B, S, H, hd)
 
 
+def _sdpa_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                valid: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_sdpa`` over one slice of the keys, before its softmax is
+    normalised: (the scores' max m (B, Hkv, g, S), the sum of exp(s - m)
+    l (B, Hkv, g, S), the unnormalised p·v o (B, S, Hkv, g, hd)), all
+    fp32; ``valid`` (T,) masks the slice's keys. ``seq_on_shards``
+    combines the slices' parts."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k).float() / math.sqrt(hd)
+    s = s.masked_fill(~valid, -1e30)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgst,btkh->bskgh", p, v.float())
+    return m, p.sum(dim=-1), o
+
+
 def attention_apply(
     p: Attention,
     cfg: ModelConfig,
@@ -228,17 +249,20 @@ def attention_apply(
     new_cache = None
     if cache is not None and cache_index is not None and S == 1:
         k_cache, v_cache = cache
-        k_cache[:, cache_index:cache_index + 1] = kv_whole(
-            k, cfg.n_kv_heads).to(k_cache.dtype)
-        v_cache[:, cache_index:cache_index + 1] = kv_whole(
-            v, cfg.n_kv_heads).to(v_cache.dtype)
+        write_at(k_cache, cache_index,
+                 kv_whole(k, cfg.n_kv_heads).to(k_cache.dtype))
+        write_at(v_cache, cache_index,
+                 kv_whole(v, cfg.n_kv_heads).to(v_cache.dtype))
         new_cache = (k_cache, v_cache)
         T = k_cache.shape[1]
-        valid = torch.arange(T, device=x.device) <= cache_index
         # low-precision KV caches are upcast at read; scores/softmax
         # math stays in the compute dtype
-        out = gqa_on_shards(_sdpa, q, k_cache.to(q.dtype),
-                            v_cache.to(q.dtype), valid)
+        kc, vc = k_cache.to(q.dtype), v_cache.to(q.dtype)
+        if seq_sharded(k_cache):      # a batch-1 cache sharded on its sequence
+            out = seq_on_shards(_sdpa_parts, q, kc, vc, cache_index)
+        else:
+            valid = torch.arange(T, device=x.device) <= cache_index
+            out = gqa_on_shards(_sdpa, q, kc, vc, valid)
     else:
         if causal and use_flash is None:
             out = kops.flash_attention(q, k, v, causal=True)

@@ -19,14 +19,20 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (P, fit, maybe_constrain,
-                                              on_shards, project, reshape,
-                                              residual_add)
+from repro_torch.distributed.sharding import (MODEL_AX, MODEL_HD,
+                                              MODEL_HEADS, P, fit,
+                                              gather_features, head_whole,
+                                              maybe_constrain, merge_heads,
+                                              model_group, model_rank,
+                                              on_shards, pin_batch, project,
+                                              reshape, residual_add,
+                                              split_heads, splits_model)
 from repro_torch.models import layers as L
 
 State = Dict[str, torch.Tensor]
@@ -67,13 +73,30 @@ def _on_head_shards(fn, x, a, B, C, state):
     they have a head each). Heads and batch rows are independent.
     Where the heads are split and B and C are shared by all of them
     (one group), each device reads B and C with its own heads only, so
-    their local gradients are partial sums over `model`."""
+    their local gradients are partial sums over `model`.
+
+    On a mesh whose `model` is split over the heads (an mLSTM whose
+    heads span several devices) it runs on (head, n) shards instead, as
+    GSPMD runs the reference's: B, C and the state on their head and
+    their slice of n, x (v with its ones channel) and the decays whole
+    within the head. Each device's y is then its slice of n's share, a
+    partial sum over ``MODEL_HD``, and so are the local gradients of x
+    and of the decays."""
     if not isinstance(x, DTensor):
         return fn(x, a, B, C, state)
-    dp, hs = fit(x, 0, ("pod", "data")), fit(x, x.dim() - 2, "model")
+    dp = fit(x, 0, ("pod", "data"))
+    seq = (None,) * (x.dim() - 3)
+    if splits_model(x.device_mesh):
+        hn = (MODEL_HEADS, MODEL_HD)
+        return on_shards(
+            fn, (x, a, B, C, state),
+            (P(dp, *seq, MODEL_HEADS, None), P(dp, *seq, MODEL_HEADS),
+             P(dp, *seq, *hn), P(dp, *seq, *hn), P(dp, *hn, None)),
+            [P(dp, *seq, MODEL_HEADS, None), P(dp, *hn, None)],
+            {0: MODEL_HD, 1: MODEL_HD}, partial_out=[MODEL_HD, None])
+    hs = fit(x, x.dim() - 2, "model")
     gs = hs if B.shape[-2] == x.shape[-2] else None
     partial = {2: "model", 3: "model"} if hs and not gs else None
-    seq = (None,) * (x.dim() - 3)
     return on_shards(
         fn, (x, a, B, C, state),
         (P(dp, *seq, hs, None), P(dp, *seq, hs), P(dp, *seq, gs, None),
@@ -313,6 +336,11 @@ def mlstm_apply(
     p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
     state: Optional[State] = None, decode: bool = False,
 ) -> Tuple[torch.Tensor, Optional[State]]:
+    """On DTensors q, k and v stay in the rules' layout, features over
+    `model` (``split_heads``): each device's are whole heads, or, on a
+    mesh whose `model` is split over the heads, its slice of one head's
+    dims, and the matrix memory runs on (head, n) shards
+    (``_on_head_shards``)."""
     b, s, d = x.shape
     up = _up(cfg)
     H = cfg.n_heads
@@ -321,15 +349,19 @@ def mlstm_apply(
     x = L.rmsnorm(p.norm, x, cfg.norm_eps)
     u = x @ p.w_u
     z = x @ p.w_z
-    q = reshape(u @ p.wq, b, s, H, hd) / math.sqrt(hd)
-    k = reshape(u @ p.wk, b, s, H, hd)
-    v = reshape(u @ p.wv, b, s, H, hd)
-    gates = (u @ p.w_if).float()
+    # u is whole on every device (``w_u`` is replicated); each product
+    # pins it on its own, so its gradient's partial sums over `model`
+    # are all-reduced one product at a time, as the reference reduces
+    # them, whatever the DTensor release does with a sum of partials
+    q = split_heads(pin_batch(u) @ p.wq, H) / math.sqrt(hd)
+    k = split_heads(pin_batch(u) @ p.wk, H)
+    v = head_whole(split_heads(pin_batch(u) @ p.wv, H))
+    gates = (pin_batch(u) @ p.w_if).float()
     i_g = torch.sigmoid(gates[..., :H])                       # (b,s,H)
     f_g = torch.sigmoid(gates[..., H:]) * 0.999 + 1e-4
     a_log = torch.log(f_g)
     # augment v with a ones channel -> numerator & normalizer together
-    v_aug = torch.cat([v, v.new_ones((b, s, H, 1))], dim=-1)
+    v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
     x_in = v_aug * i_g.to(v.dtype)[..., None]
     if decode:
         y_aug, newC = ssd_step(x_in[:, 0], a_log[:, 0], k[:, 0], q[:, 0],
@@ -339,9 +371,11 @@ def mlstm_apply(
         h0 = None if state is None else state["C"]
         y_aug, newC = ssd_chunked(x_in, a_log, k, q,
                                   min(cfg.ssm_chunk or 128, 128), h0)
+    y_aug = head_whole(y_aug)             # the partial sums over n reduced
     num, den = y_aug[..., :hd], y_aug[..., hd:]
-    y = num / den.abs().clamp_min(1.0).to(num.dtype)
-    y = reshape(y, b, s, up)
+    # whole within its head, its gradient too (gathered from the
+    # devices' slices of hd), before each device keeps its slice
+    y = merge_heads(head_whole(num / den.abs().clamp_min(1.0).to(num.dtype)))
     y = L.rmsnorm(p.out_norm, y, cfg.norm_eps) * F.silu(z)
     out = residual_add(res, y @ p.w_down)
     new_state = {"C": newC} if (state is not None or decode) else None
@@ -401,10 +435,8 @@ def _slstm_cell(r_gates: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor,
 def _slstm_scan(p: SLSTM, cfg: ModelConfig, xg: torch.Tensor, st: State
                 ) -> Tuple[torch.Tensor, State]:
     """The cell over every step of xg (b, s, 4*up): (h of each step
-    (b, s, up), the last state). On DTensors the loop runs on each
-    device's shards in the rules' layout of the sLSTM state
-    (``cache_specs``' "c", "n", "h": the batch over (`pod`, `data`),
-    the rest whole), so no collective runs inside it."""
+    (b, s, up), the last state). On DTensors it runs on each device's
+    shards (``_slstm_on_units``)."""
     def scan(xg, r_gates, c, n, h):
         st = {"c": c, "n": n, "h": h}
         hs = []
@@ -417,13 +449,107 @@ def _slstm_scan(p: SLSTM, cfg: ModelConfig, xg: torch.Tensor, st: State
     if not any(isinstance(t, DTensor) for t in args):
         y, c, n, h = scan(*args)
     else:
-        dp = fit(xg, 0, ("pod", "data"))
-        one, two = P(dp, None), P(dp, None, None)
-        y, c, n, h = on_shards(
-            scan, args, (two, P(None, None, None), one, one, one),
-            [two, one, one, one],
-            {1: dp} if dp else None)
+        y, c, n, h = _slstm_on_units(cfg, *args)
     return y, {"c": c, "n": n, "h": h}
+
+
+def _slstm_on_units(cfg: ModelConfig, xg, r_gates, c, n, h):
+    """The sLSTM scan on each device's shards, as GSPMD runs the
+    reference's: the batch over (`pod`, `data`); the pre-activations
+    xg (b, s, 4*up) on their column blocks over `model` (``w_gates`` is
+    column-parallel), and h, c and n on their units (up / `model` of
+    them). Each step a device adds its block's recurrent product (its
+    heads' h, gathered within a head whose units span several devices,
+    against its columns of ``r_gates``), trades the block by all-to-all
+    for the four gates of its own units, and runs the cell on them.
+    Returns (h of each step on its units, the last c, n and h on their
+    units). The reference trades the gates with collective-permutes.
+
+    The gradient: an all-to-all's is an all-to-all, a gather's a
+    reduce-scatter (each device reads its head's h with its own
+    columns), and each device reads its columns of ``r_gates``, so their
+    local gradients are partial sums over `model`."""
+    mesh = xg.device_mesh
+    r, M = model_rank(mesh)
+    H = cfg.n_heads
+    up = xg.shape[-1] // 4
+    hd = up // H
+    uw = up // M                              # units a device holds
+    if up % M or (uw % hd and hd % uw):
+        raise ValueError(f"sLSTM: {H} heads of {hd} units do not split "
+                         f"over `model` {M}")
+    if uw < hd and not splits_model(mesh):
+        raise ValueError(f"sLSTM: a head of {hd} units spans {hd // uw} "
+                         f"devices of `model`: place it on a mesh whose "
+                         f"`model` is split over the {H} heads")
+    order, sends, recvs = _unit_exchange(r, M, up)
+    grad = torch.is_grad_enabled()
+    # (torch 2.11 lacks the ``_single`` names, 2.13 deprecates the others)
+    gather = (getattr(funcol, "all_gather_single_autograd",
+                      funcol.all_gather_tensor_autograd) if grad else
+              getattr(funcol, "all_gather_single", funcol.all_gather_tensor))
+    trade = funcol.all_to_all_single_autograd if grad else \
+        funcol.all_to_all_single
+    hd_dim = (mesh, mesh.mesh_dim_names.index(MODEL_HD)) if uw < hd else None
+
+    def recurrent(rg):
+        """(the device's heads' h (b, uw) or (b, hd)) -> its columns of
+        the recurrent product (b, 4*uw)."""
+        if uw >= hd:
+            h0, kh = r * uw // hd, uw // hd
+            w = rg[h0:h0 + kh]
+            return lambda hh: torch.einsum(
+                "bhd,hdk->bhk", hh.reshape(hh.shape[0], kh, hd),
+                w).reshape(hh.shape[0], 4 * uw)
+        k0 = r % (hd // uw) * 4 * uw
+        w = rg[r * uw // hd, :, k0:k0 + 4 * uw]
+        return lambda hh: hh @ w
+
+    def scan(xg_l, rg, c_l, n_l, h_l):
+        rec = recurrent(rg)
+        b = xg_l.shape[0]
+        hs = []
+        for t in range(xg_l.shape[1]):
+            hh = h_l if hd_dim is None else gather(h_l, 1, hd_dim)
+            pre = (xg_l[:, t] + rec(hh.to(rg.dtype))).float()
+            blk = pre.reshape(b, 4, uw)[:, order].transpose(0, 1)
+            if M > 1:
+                blk = trade(blk.contiguous(), recvs, sends, model_group(mesh))
+            z_t, i_t, f_t, o_t = blk
+            z_t = torch.tanh(z_t)
+            i_t = torch.sigmoid(i_t)
+            f_t = torch.sigmoid(f_t)
+            o_t = torch.sigmoid(o_t)
+            c_l = f_t * c_l + i_t * z_t
+            n_l = f_t * n_l + i_t
+            h_l = o_t * c_l / n_l.clamp_min(1.0)
+            hs.append(h_l)
+        return torch.stack(hs, dim=1), c_l, n_l, h_l
+
+    dp = fit(xg, 0, ("pod", "data"))
+    units = P(dp, MODEL_AX)
+    return on_shards(scan, (xg, r_gates, c, n, h),
+                     (P(dp, None, MODEL_AX), P(None, None, None), units,
+                      units, units),
+                     [P(dp, None, MODEL_AX), units, units, units],
+                     {1: ("pod", "data", MODEL_AX) if dp else MODEL_AX})
+
+
+def _unit_exchange(r: int, M: int, up: int):
+    """The all-to-all that trades device ``r``'s column block of the
+    pre-activations (4 * up / ``M`` of the flat (gate, unit) columns) for
+    the four gates of its own units: (the order of the block's chunks of
+    up / ``M`` columns, sorted by the device that holds their units; the
+    chunks sent to each device; the chunks received from each, which
+    arrive gate by gate)."""
+    uw, width = up // M, 4 * up // M
+    first = [r * width + j * uw for j in range(4)]
+    dest = [f % up // uw for f in first]
+    order = sorted(range(4), key=lambda j: (dest[j], first[j]))
+    sends = [dest.count(i) for i in range(M)]
+    srcs = [(g * up + r * uw) // width for g in range(4)]
+    recvs = [srcs.count(i) for i in range(M)]
+    return order, sends, recvs
 
 
 def slstm_apply(
@@ -435,17 +561,14 @@ def slstm_apply(
     b, s, d = x.shape
     res = x
     x = L.rmsnorm(p.norm, x, cfg.norm_eps)
-    xg = (x @ p.w_up) @ p.w_gates                        # (b, s, 4*up)
+    # the input path whole before the column-parallel ``w_gates``, as
+    # GSPMD gathers it
+    xg = gather_features(x @ p.w_up) @ p.w_gates         # (b, s, 4*up)
     st = state if state is not None else slstm_state(cfg, b,
                                                      device=x.device)
-    if decode:
-        st = _slstm_cell(p.r_gates, cfg, xg[:, 0], st)
-        y = st["h"][:, None].to(x.dtype)
-        new_state: Optional[State] = st
-    else:
-        y, st = _slstm_scan(p, cfg, xg, st)
-        y = y.to(x.dtype)
-        new_state = st if state is not None else None
+    y, st = _slstm_scan(p, cfg, xg, st)
+    y = y.to(x.dtype)
+    new_state = st if (state is not None or decode) else None
     y = L.rmsnorm(p.out_norm, y, cfg.norm_eps)
     out = residual_add(res, y @ p.w_down)
     return out, new_state

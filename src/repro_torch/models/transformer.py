@@ -91,8 +91,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def _embed_tokens(p: Transformer, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
     if cfg.family == "audio":
-        # tokens: (B, K, S) -> sum of per-codebook embeddings
-        return sum(embed(p.embed[k], tokens[:, k])
+        # tokens: (B, K, S) -> sum of per-codebook embeddings, each in
+        # the residual stream's layout before the sum, as GSPMD reduces
+        # each lookup's partial sums (DTensor would reduce-scatter their
+        # sum onto the sequence on some releases)
+        return sum(pin_residual(embed(p.embed[k], tokens[:, k]), p.embed[k])
                    for k in range(cfg.n_codebooks))
     return embed(p.embed, tokens)
 

@@ -298,18 +298,46 @@ def test_multi_pod_gqa_train_runs(heads, no_kernel):
     assert no_kernel == [] and fa.launches == 0 and gm.launches == 0
 
 
-_REFERENCE_CELL = r'''
+_REFERENCE_CELLS = r'''
 import json, sys
 import repro.launch.dryrun as D
-from repro.configs import ARCHS
 from repro.configs.base import ShapeCell
 from repro.launch.mesh import make_production_mesh
-kw, cell, mesh_name = json.loads(sys.argv[1])
-cfg = ARCHS["qwen2-0.5b"].replace(**kw)
-mesh = make_production_mesh(multi_pod=mesh_name == "multi")
-row = D.analyze_cell("qwen2-0.5b", cfg, ShapeCell(*cell), mesh, mesh_name)
-print(json.dumps([row["flops_per_device"], row["collective_bytes_per_device"]]))
+rows = []
+for arch, kw, cell, mesh_name in json.loads(sys.argv[1]):
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
+    cfg = D.ARCHS[arch].replace(**kw)
+    mesh = make_production_mesh(multi_pod=mesh_name == "multi")
+    row = D.analyze_cell(arch, cfg, ShapeCell(*cell), mesh, mesh_name)
+    rows.append([row["flops_per_device"], row["collective_bytes_per_device"]])
+print(json.dumps(rows))
 '''
+
+
+def _reference_rows(cells):
+    """The reference's (per-device FLOPs, collective bytes) of each
+    (arch, config changes, cell, mesh) in ``cells``, from its
+    ``analyze_cell`` in a subprocess: ``repro.launch.dryrun`` forces 512
+    host devices at import."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(sys.path))
+    out = subprocess.run([sys.executable, "-c", _REFERENCE_CELLS,
+                          json.dumps(cells)],
+                         capture_output=True, text=True, env=env, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _port_row(arch, kw, cell, mesh_name):
+    world, multi = dryrun.MESHES[mesh_name]
+    cfg = dryrun.ARCHS[arch].replace(**kw)
+    with process_group("fake", world):
+        mesh = make_production_mesh(multi_pod=multi)
+        return dryrun.analyze_cell(arch, cfg, ShapeCell(*cell), mesh,
+                                   mesh_name)
 
 
 @pytest.mark.parametrize("mesh_name", ["single", "multi"])
@@ -322,27 +350,198 @@ def test_flops_match_the_reference_dry_run(mesh_name):
     Collective bytes within [0.25, 2] of the reference's (measured 0.49
     and 0.52: the reference's CPU compile all-reduces bf16 partial sums
     in f32, twice the bytes of the port's bf16)."""
-    import os
-    import subprocess
-    import sys
-
     kw = dict(n_layers=2, d_model=128, n_heads=14, n_kv_heads=2, d_head=64,
               d_ff=256, vocab_size=1024)
     cell = ("train_s", "train", 512, 64)
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.pathsep.join(sys.path))
-    out = subprocess.run([sys.executable, "-c", _REFERENCE_CELL,
-                          json.dumps([kw, cell, mesh_name])],
-                         capture_output=True, text=True, env=env, check=True)
-    ref_flops, ref_coll = json.loads(out.stdout.strip().splitlines()[-1])
-    world, multi = dryrun.MESHES[mesh_name]
-    cfg = dryrun.ARCHS["qwen2-0.5b"].replace(**kw)
-    with process_group("fake", world):
-        mesh = make_production_mesh(multi_pod=multi)
-        row = dryrun.analyze_cell("qwen2-0.5b", cfg, ShapeCell(*cell), mesh,
-                                  mesh_name)
+    ((ref_flops, ref_coll),) = _reference_rows(
+        [["qwen2-0.5b", kw, cell, mesh_name]])
+    row = _port_row("qwen2-0.5b", kw, cell, mesh_name)
     assert row["flops_per_device"] == pytest.approx(ref_flops, rel=FLOP_RTOL)
     assert 0.25 * ref_coll <= row["collective_bytes_per_device"] <= 2 * ref_coll
+
+
+# ---- xLSTM's heads over `model`, a sequence-sharded decode ----
+# `xlstm-350m` cut to 2 blocks ("m", "s") and d_model 256: up = 512, so
+# each of the 4 heads (hd 128) spans 4 devices of the 16-way `model`, 32
+# features a device, as the full model's heads (hd 512, 128 a device).
+XLSTM_CUT = dict(n_layers=2, xlstm_pattern=("m", "s"), d_model=256,
+                 vocab_size=1024)
+# `zamba2-7b` cut to 2 Mamba2 layers and one application of the shared
+# block (the reference counts its branch 2 x 1/2 times), 16 heads and kv
+# heads on 16 devices, at batch 1 with a cache of 256 = 16 x 16
+# positions: sharded on its sequence over `data`, as `long_500k`'s.
+ZAMBA2_CUT = dict(n_layers=2, hybrid_attn_every=2, d_model=512, n_heads=16,
+                  n_kv_heads=16, d_head=32, d_ff=1024, vocab_size=1024,
+                  ssm_heads=16, ssm_head_dim=64)
+# (arch, cut, cell, FLOPs' rtol, the band of collective bytes over the
+# reference's); the bands from the op-by-op lists of
+# ``scripts/dryrun_collectives.py`` at these sizes (PERF.md, section 6):
+# - every all-reduce and all-gather of bf16 data moves half the
+#   reference's bytes, which its CPU compile moves in f32 (the residual
+#   stream's partial sums, mLSTM's y and v, the sLSTM's input path);
+# - the reference trades v's ones channel by two all-to-alls and the
+#   sLSTM's gates each step by 14 to 17 collective-permutes, where the
+#   port all-to-alls its gates once and gathers a head's h (a third to a
+#   half of those bytes);
+# - in training the reference all-reduces the sLSTM's recurrent weight
+#   gradient every step (f32[1,512,32] x64), the port once at the end.
+#   Measured 0.3713 / 0.3811 (train, single / multi), 0.4245 (prefill),
+#   0.4583 (decode);
+# - the Zamba2 cell: the combine's fp32 max, sum and output all-reduces
+#   equal the reference's byte for byte, the rest are bf16 residual
+#   all-reduces: measured 0.5069.
+# FLOPs: the xLSTM cells within 0.05 (measured 1.029 train, 1.028
+# prefill, 1.0097 decode): the port runs the mLSTM's intra-chunk product
+# on every column of v, where GSPMD splits it over the head's devices
+# (its f32[4,129,64] dots), and its gates' product whole; the Zamba2
+# cell equal.
+XLSTM_FLOP_RTOL = 0.05
+HEADS_CELLS = {
+    "xlstm_train": ("xlstm-350m", XLSTM_CUT, ("train_s", "train", 64, 64),
+                    XLSTM_FLOP_RTOL, (0.30, 0.45)),
+    "xlstm_prefill": ("xlstm-350m", XLSTM_CUT,
+                      ("prefill_s", "prefill", 64, 64), XLSTM_FLOP_RTOL,
+                      (0.35, 0.55)),
+    "xlstm_decode": ("xlstm-350m", XLSTM_CUT,
+                     ("decode_s", "decode", 128, 64), XLSTM_FLOP_RTOL,
+                     (0.35, 0.55)),
+    "zamba2_decode_b1": ("zamba2-7b", ZAMBA2_CUT,
+                         ("long_s", "decode", 256, 1), FLOP_RTOL,
+                         (0.45, 0.55)),
+}
+
+
+@pytest.fixture(scope="module")
+def heads_reference():
+    """The reference's rows of every ``HEADS_CELLS`` cell on both meshes,
+    in one subprocess."""
+    keys = [(name, m) for name in HEADS_CELLS for m in ("single", "multi")]
+    rows = _reference_rows([[HEADS_CELLS[n][0], HEADS_CELLS[n][1],
+                             HEADS_CELLS[n][2], m] for n, m in keys])
+    return dict(zip(keys, rows))
+
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+@pytest.mark.parametrize("name", list(HEADS_CELLS))
+def test_heads_and_sequence_cells_match_the_reference(heads_reference, name,
+                                                      mesh_name, no_kernel):
+    """xLSTM's mLSTM on (head, head-dim) shards and sLSTM on its units,
+    and Zamba2's decode over a sequence-sharded cache, at cut sizes:
+    per-device FLOPs and collective bytes against the reference's
+    ``analyze_cell`` on the same config, cell and mesh."""
+    arch, kw, cell, rtol, (lo, hi) = HEADS_CELLS[name]
+    ref_flops, ref_coll = heads_reference[(name, mesh_name)]
+    row = _port_row(arch, kw, cell, mesh_name)
+    assert row["status"] == "ok" and no_kernel == []
+    assert row["flops_per_device"] == pytest.approx(ref_flops, rel=rtol)
+    assert lo <= row["collective_bytes_per_device"] / ref_coll <= hi
+
+
+class _CollectiveLog(OpCounter):
+    """``OpCounter`` that also keeps each collective's kind and result
+    shape."""
+
+    def __init__(self):
+        super().__init__()
+        self.log = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if (out is not NotImplemented and func.namespace in
+                ("_c10d_functional", "c10d_functional")
+                and not self._propagation()):
+            from repro_torch.launch.op_analysis import _COLL_KIND
+            kind = _COLL_KIND.get(func._opname)
+            if kind:
+                t = out if isinstance(out, torch.Tensor) else out[0]
+                self.log.append((kind, tuple(t.shape),
+                                 t.numel() * t.element_size()))
+        return out
+
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+def test_sequence_sharded_decode_combines_on_shards(mesh_name):
+    """One decode step of the shared attention block over a batch-1 KV
+    cache sharded 16 ways on its sequence over `data` (on the 2x16x16
+    mesh too, replicated over `pod`), on a fake mesh: every collective
+    is an all-reduce, none larger than (B, H, hd + 2) fp32 (the combine's
+    max, sum and output; the out-projection's partial sums), and no
+    device gathers the cache to write or read it."""
+    from repro_torch.distributed.sharding import (cache_specs, placements,
+                                                  replicate_plain,
+                                                  sanitize_tree)
+    from repro_torch.models.layers import Attention, attention_apply
+
+    cfg = dryrun.ARCHS["zamba2-7b"].replace(**ZAMBA2_CUT)
+    cell = ShapeCell("long_s", "decode", 256, 1)
+    world, multi = dryrun.MESHES[mesh_name]
+    with process_group("fake", world):
+        mesh = make_production_mesh(multi_pod=multi)
+        dmesh = dryrun.cell_mesh(cfg, cell, mesh)
+        model = build_model(cfg)
+        cache = model.init_cache(1, 256, torch.bfloat16, device="meta")
+        spec = sanitize_tree(cache, cache_specs(cfg, cell, mesh, cache), mesh)
+        kv = distribute_tensor(cache["kv_k"], dmesh,
+                               placements(spec["kv_k"], dmesh))
+        assert dict(zip(dmesh.mesh_dim_names, kv.placements)) == (
+            {"data": Shard(2), "model": Shard(3)} | (
+                {"pod": Replicate()} if multi else {}))
+        attn = Attention(cfg, torch.bfloat16, device="meta")
+        attn = reshard_state(attn, dmesh, param_specs(cfg, attn, mesh))
+        x = distribute_tensor(torch.empty(1, 1, cfg.d_model,
+                                          dtype=torch.bfloat16,
+                                          device="meta"),
+                              dmesh, [Replicate()] * dmesh.ndim)
+        k_c, v_c = kv[0], distribute_tensor(
+            cache["kv_v"], dmesh, placements(spec["kv_v"], dmesh))[0]
+        with replicate_plain(x), _CollectiveLog() as c, torch.no_grad():
+            out, _ = attention_apply(attn, cfg, x, torch.full((1, 1), 200, device="meta"),
+                                     cache=(k_c, v_c), cache_index=200)
+    assert tuple(out.shape) == (1, 1, cfg.d_model)
+    limit = 1 * cfg.n_heads * (cfg.d_head + 2) * 4
+    assert c.log and {k for k, _, _ in c.log} == {"all-reduce"}
+    assert max(b for _, _, b in c.log) <= limit
+
+
+def test_mlstm_gathers_no_qkv():
+    """One mLSTM block's decode step on the fake 16x16 mesh split over its
+    4 heads, each spanning 4 devices of `model`: q and k stay on (head,
+    head-dim) shards and the matrix memory on (head, n) shards; the only
+    gather is v's within its head (for its ones channel), the only other
+    collectives the all-reduce of y's partial sums over n, the out-norm's
+    variance and the out-projection's partial sums. Before, q, k and v
+    were gathered whole and the memory ran replicated over `model`
+    (``bf16 (128, 1, 128) x63`` at full width)."""
+    from repro_torch.distributed.sharding import (MODEL_HD, MODEL_HEADS,
+                                                  placements,
+                                                  replicate_plain)
+    from repro_torch.models.ssm import MLSTM, mlstm_apply, mlstm_state
+
+    cfg = dryrun.ARCHS["xlstm-350m"].replace(**XLSTM_CUT)
+    b, up, H = 64, 512, 4
+    hd = up // H
+    with process_group("fake", 256):
+        mesh = make_production_mesh()
+        dmesh = dryrun.cell_mesh(cfg, ShapeCell("d", "decode", 128, b), mesh)
+        assert dmesh.mesh_dim_names == ("data", MODEL_HEADS, MODEL_HD)
+        blk = MLSTM(cfg, torch.bfloat16, device="meta")
+        blk = reshard_state(blk, dmesh, param_specs(cfg, blk, mesh))
+        C = distribute_tensor(mlstm_state(cfg, b, device="meta")["C"], dmesh,
+                              placements(P("data", MODEL_HEADS, MODEL_HD,
+                                           None), dmesh))
+        x = distribute_tensor(torch.empty(b, 1, cfg.d_model,
+                                          dtype=torch.bfloat16,
+                                          device="meta"), dmesh,
+                              placements(P("data", None, None), dmesh))
+        with replicate_plain(x), _CollectiveLog() as c, torch.no_grad():
+            out, st = mlstm_apply(blk, cfg, x, {"C": C}, decode=True)
+    assert st["C"].placements == C.placements
+    bl = b // 16
+    gathers = [s for k, s, _ in c.log if k == "all-gather"]
+    assert gathers == [(bl * 4, 1, 1, hd // 4)]        # v, within its head
+    reduces = sorted(s for k, s, _ in c.log if k == "all-reduce")
+    assert reduces == sorted([(bl, 1, 1, hd + 1), (bl, 1, 1),
+                              (bl, 1, cfg.d_model)])
 
 
 def test_ssd_chunk_loop_runs_on_shards():
@@ -415,3 +614,30 @@ def test_rmsnorm_keeps_a_feature_sharded_layout():
     var = (b // 16) * s * 4 * 2                     # f32 (b, s, 1), x2
     assert m["all-reduce_count"] == 2
     assert m["total_weighted_bytes"] == m["all-reduce_bytes"] == 2 * var
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_audio_codebooks_reduce_each_lookup(kind, no_kernel):
+    """`musicgen-large` cut to 2 layers: each codebook's vocab-parallel
+    lookup is all-reduced into the residual stream's layout before the
+    sum, as the reference all-reduces the four (one tuple all-reduce).
+    Left to DTensor, torch 2.13 reduce-scattered the sum of the four
+    partial lookups onto the sequence and gathered it back, torch 2.11
+    all-reduced each: the rows' collective bytes moved 1.4-3.4% with the
+    release. No reduce-scatter is left; a decode step all-reduces two
+    partial sums a layer and the four lookups (its one gather is the
+    logits', viewed as (B, S, K, V), on both releases)."""
+    cfg = dryrun.ARCHS["musicgen-large"].replace(n_layers=2, d_model=256,
+                                                n_heads=16, n_kv_heads=16,
+                                                d_head=16, d_ff=512)
+    cell = (ShapeCell("t", "train", 64, 64) if kind == "train"
+            else ShapeCell("d", "decode", 64, 64))
+    with process_group("fake", 256):
+        mesh = make_production_mesh()
+        row = dryrun.analyze_cell("musicgen-large", cfg, cell, mesh, "single")
+    colls = row["collectives"]
+    assert row["status"] == "ok"
+    assert "reduce-scatter_count" not in colls
+    if kind == "decode":
+        assert colls["all-reduce_count"] == 2 * cfg.n_layers + cfg.n_codebooks
+        assert colls["all-gather_count"] == 1

@@ -16,7 +16,18 @@ the unsharded loss in this process:
   and with both;
 - the smoke Zamba2 config (the SSD on each device's heads, B and C
   shared by all of them) and the smoke xLSTM config (the sLSTM scan on
-  each device's batch rows).
+  each device's batch rows and units, the mLSTM on each device's
+  heads);
+- the smoke xLSTM config with heads that do not cover `model`, on a
+  mesh whose `model` is split over them (``MESHES``): 1 head on a
+  `model` of 2 ((2, 1, 2) (`data`, `model_h`, `model_d`)) and 2 heads on
+  a `model` of 4 ((1, 2, 2)). Each head then spans 2 devices: the mLSTM
+  runs on (head, head-dim) shards, its matrix memory's contraction over
+  n a partial sum within the head, and the sLSTM trades its gates by
+  all-to-all each step and gathers its head's h. (Before, the heads
+  were gathered and both ran whole on every device: the same numbers,
+  which this test cannot tell apart; ``tests/test_torch_dryrun.py``
+  holds the layout.)
 
 A training step's parameters (``tests/test_torch_distributed.py``)
 cannot tell a gradient from a multiple of it: AdamW's first step moves
@@ -58,7 +69,14 @@ RUNS = {"dense": ("qwen2-0.5b", False, {}),
                             {"n_heads": 3, "n_kv_heads": 1,
                              "vocab_size": 511}),
         "zamba2": ("zamba2-7b", False, {}),
-        "xlstm": ("xlstm-350m", False, {})}
+        "xlstm": ("xlstm-350m", False, {}),
+        "xlstm_one_head": ("xlstm-350m", False,
+                           {"n_heads": 1, "n_kv_heads": 1}),
+        "xlstm_two_heads": ("xlstm-350m", False,
+                            {"n_heads": 2, "n_kv_heads": 2})}
+# (`model`, the heads `model` is split over) of a run's mesh; the rest
+# run on a (2, 2) (`data`, `model`) mesh
+MESHES = {"xlstm_one_head": (2, 1), "xlstm_two_heads": (4, 2)}
 # Zamba2's SSD sums in fp32 whatever the weights' dtype: its A_log, B
 # and C gradients differ by up to 2.4e-5 between the head-split order of
 # sums and the whole one (3e-14 with the SSD in float64 too)
@@ -89,8 +107,10 @@ def _worker(rank, world, root, out):
     torch.set_num_threads(1)
     res = {}
     with process_group("gloo", world, rank, f"file://{root}/rdv"):
-        mesh = make_local_mesh(model=2, device="cpu")
         for name in RUNS:
+            model_size, heads = MESHES.get(name, (2, 0))
+            mesh = make_local_mesh(model=model_size, device="cpu",
+                                   model_heads=heads)
             cfg, model, state, batch = _setup(name)
             spec = state_specs(cfg, mesh, param_specs(cfg, state["params"],
                                                       mesh))
