@@ -121,7 +121,8 @@ def _ref(args) -> None:
             shape, kind = m.group(1), m.group(2)
             b = H._shape_bytes(shape) * H._FACTORS[kind] * w
             operand = re.search(r"\((%[\w.\-]+)", ln[m.end() - 1:])
-            print(f"{kind:15s} {shape[:44]:44s} x{w:<6g} {b:.6e} "
+            shape = re.sub(r"\{[\d,]*\}", "", shape)   # layouts
+            print(f"{kind:15s} {shape:44s} x{w:<6g} {b:.6e} "
                   f"of {operand.group(1) if operand else '(tuple)'} "
                   f"in {name}")
     _totals(row, f"jax {jax.__version__}")

@@ -337,17 +337,19 @@ def cache_specs(cfg: ModelConfig, cell: ShapeCell, mesh: MeshLike, cache,
 
 
 def carried_specs(spec_tree, mesh: DeviceMesh):
-    """``cache_specs``' tree (sanitized) as the port carries an xLSTM's
+    """``cache_specs``' tree (sanitized) as the port carries a cache or
     state between steps on ``mesh``, where its blocks leave it and where
-    the reference's decode step carries it through its layer scan: the
-    sLSTM's c, n and h (..., B, up) on their units over `model`
-    (``ssm._slstm_on_units``), and, where ``mesh`` splits `model` over the
-    mLSTM's heads, its matrix memory C (..., B, H, n, p) on (head, n)
-    shards (``ssm._on_head_shards``). The reference's step takes them
-    replicated over `model` (``cache_specs``) and slices each device's
-    shard for free; a state written in place keeps one layout, and a
-    replicated one would be gathered whole at every write. Every other
-    leaf keeps its spec."""
+    the reference's step hands it back: the sLSTM's c, n and h (..., B,
+    up) on their units over `model` (``ssm._slstm_on_units``); where
+    ``mesh`` splits `model` over the mLSTM's heads, its matrix memory C
+    (..., B, H, n, p) on (head, n) shards (``ssm._on_head_shards``); and
+    where it splits `model` over a transformer's kv heads
+    (``kv_heads_split``), the KV cache (L, B, S, kv, hd) with its heads
+    over ``MODEL_HEADS``. The reference's step takes them replicated
+    over `model` (``cache_specs``) and slices each device's shard for
+    free; a state written in place keeps one layout, and a replicated
+    one would be gathered whole at every write. Every other leaf keeps
+    its spec."""
     M = model_rank(mesh)[1]
 
     def spec(keys, s: P) -> P:
@@ -356,6 +358,9 @@ def carried_specs(spec_tree, mesh: DeviceMesh):
             return P(*s[:-3], MODEL_HEADS, MODEL_HD, None)
         if name in ("c", "n", "h") and M > 1:
             return P(*s[:-1], MODEL_AX)
+        if isinstance(name, int) and len(s) == 5 and s[3] is None \
+                and splits_model(mesh):
+            return P(*s[:3], MODEL_HEADS, None)
         return s
 
     return _map_with_path(spec, spec_tree)
@@ -443,20 +448,38 @@ def _on_mesh(mesh: DeviceMesh, entries) -> tuple:
 class _Constrain(torch.autograd.Function):
     """A DTensor brought to placements ``want``, and its gradient too: a
     sharding constraint pins the cotangent as well (its transpose in
-    JAX is the same constraint)."""
+    JAX is the same constraint). Where x was a partial sum, its gradient
+    comes back whole on that mesh dim, as GSPMD transposes the reduction
+    (a row-parallel product's output gradient is gathered, so its input
+    and weight gradients run on each device's shards)."""
 
     @staticmethod
     def forward(ctx, x, want):
-        ctx.want = want
+        ctx.want = tuple(Replicate() if isinstance(p, Partial) else w
+                         for p, w in zip(x.placements, want))
         if tuple(x.placements) == want:
             return x.view_as(x)
-        return x.redistribute(x.device_mesh, want)
+        return redistribute(x, want)
 
     @staticmethod
     def backward(ctx, g):
         if isinstance(g, DTensor) and tuple(g.placements) != ctx.want:
-            g = g.redistribute(g.device_mesh, ctx.want)
+            g = redistribute(g, ctx.want)
         return g, None
+
+
+def redistribute(x: DTensor, want: tuple) -> DTensor:
+    """``x`` brought to placements ``want``. A partial sum bound for
+    shards of the same mesh dim is all-reduced and then sliced, as XLA's
+    partitioner lowers it on the CPU (the reference's programs hold no
+    reduce-scatter): DTensor would reduce-scatter it, which the op
+    counters weigh by its result, a 1/M shard, where the reference's
+    all-reduce weighs twice the whole."""
+    via = tuple(Replicate() if isinstance(p, Partial) and isinstance(w, Shard)
+                else w for p, w in zip(x.placements, want))
+    if via != want:
+        x = x.redistribute(x.device_mesh, via)
+    return x.redistribute(x.device_mesh, want)
 
 
 def maybe_constrain(x, *entries):
@@ -479,7 +502,7 @@ def _pin(x: DTensor, want: tuple) -> DTensor:
         return _Constrain.apply(x, want)
     if tuple(x.placements) == want:
         return x
-    return x.redistribute(x.device_mesh, want)
+    return redistribute(x, want)
 
 
 def residual_add(x, y):
@@ -663,6 +686,12 @@ def _heads_on_shards(attn, q, k, dp):
     g = H // Hkv
     r, M = model_rank(q.device_mesh)
     n_loc = H // M if hq else H
+    if hq and not hk and _on_kv_split(k):
+        # a cache holding its kv heads over ``MODEL_HEADS``: each device's
+        # slice is the one kv head its q heads share
+        spec_kv = P(dp, None, MODEL_HEADS, None)
+        return ((P(dp, None, hq, None), spec_kv), attn,
+                {1: MODEL_HD, 2: MODEL_HD})
     if hq and not hk and g % n_loc:
         hq = None                 # a device's q heads span two kv heads
     fn, partial = attn, None
@@ -674,6 +703,16 @@ def _heads_on_shards(attn, q, k, dp):
 
         partial = {1: MODEL_AX, 2: MODEL_AX}
     return (P(dp, None, hq, None), P(dp, None, hk, None)), fn, partial
+
+
+def _on_kv_split(k) -> bool:
+    """Whether ``k`` (B, T, Hkv, hd) holds its kv heads over
+    ``MODEL_HEADS`` (``kv_whole`` on a mesh split over them)."""
+    if not (isinstance(k, DTensor) and splits_model(k.device_mesh)):
+        return False
+    i = k.device_mesh.mesh_dim_names.index(MODEL_HEADS)
+    p = k.placements[i]
+    return isinstance(p, Shard) and p.dim == 2
 
 
 def seq_sharded(cache) -> bool:
@@ -986,14 +1025,18 @@ def project(x, w, out_like=None):
     """``x @ w`` for a projection whose weight the rules replicate over
     `model` (attention's, where the heads do not divide it). GSPMD
     splits such a weight to follow the residual stream: where x is
-    sharded on d (``pin_residual``), w is split on its rows (a partial
-    sum, reduced after); where ``out_like`` is, on its columns. DTensor
-    would run the product whole, and its backward too."""
+    sharded on d (``pin_residual``), w is split on its rows, and the
+    partial sums are all-reduced once, as the reference reduces q, k and
+    v right after their products (a prefill reads k and v twice, for
+    its attention and its cache); where ``out_like`` is, on its columns.
+    DTensor would run the product whole, and its backward too."""
     if isinstance(w, DTensor) and isinstance(x, DTensor) and not any(
             isinstance(p, Shard) for p in w.placements):
         if _d_sharded(x):
-            w = maybe_constrain(w, MODEL_AX, None)
-        elif out_like is not None and _d_sharded(out_like):
+            y = x @ maybe_constrain(w, MODEL_AX, None)
+            return _pin(y, tuple(Replicate() if isinstance(p, Partial)
+                                 else p for p in y.placements))
+        if out_like is not None and _d_sharded(out_like):
             w = maybe_constrain(w, None, MODEL_AX)
     return x @ w
 
@@ -1046,13 +1089,35 @@ def kv_heads(n_heads: int, n_kv: int, hd: int, *ws):
     return (M, *(virtual(w) for w in ws))
 
 
+def kv_heads_split(cfg: ModelConfig, M: int) -> int:
+    """The kv heads a serving cell's mesh splits `model` over (0: none):
+    where ``kv_heads`` gives each device the one kv head its q heads
+    share, each kv head spans ``M // n_kv`` devices, and the cache holds
+    the kv heads over ``MODEL_HEADS`` (``carried_specs``), as the
+    reference's step hands it back (qwen2-72b's ``bf16[80,8,32768,1,128]``
+    a device from a cache it took replicated over `model`)."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if not h % M and kv % M and not M % kv and not (h // kv) % (h // M):
+        return kv
+    return 0
+
+
 def kv_whole(k, n_kv: int):
     """k or v (B, S, heads, hd) with its ``n_kv`` kv heads whole, from
     ``kv_heads``' virtual heads (each kv head repeated over the devices
-    that share it): gathered over `model` and one of each kept, as the
-    cache holds them. Anything else comes back as it is."""
+    that share it), as the cache holds them: on a mesh whose `model` is
+    split over the kv heads (``kv_heads_split``) each device's virtual
+    head is its kv head, so the heads come back over ``MODEL_HEADS``
+    with no collective; on any other mesh they are gathered over `model`
+    and one of each kept. Anything else comes back as it is."""
     if not isinstance(k, DTensor) or k.shape[2] == n_kv:
         return k
+    mesh = k.device_mesh
+    if splits_model(mesh) and mesh.size(
+            mesh.mesh_dim_names.index(MODEL_HEADS)) == n_kv:
+        dp = fit(k, 0, ("pod", "data"))
+        return on_shards(lambda t: t, (k,), (P(dp, None, MODEL_AX, None),),
+                         P(dp, None, MODEL_HEADS, None))
     k = maybe_constrain(k, ("pod", "data"), None, None, None)
     return k[:, :, ::k.shape[2] // n_kv]
 

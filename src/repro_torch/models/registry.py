@@ -170,7 +170,10 @@ class Model:
                 ) -> Tuple[torch.Tensor, Any]:
         """Full-sequence forward that fills the cache/state; (B, S, V)
         logits ((B, S, K, V) for audio) unless ``prefill_last_only``,
-        which only the transformer stack reads, as in the reference."""
+        which only the transformer stack reads, as in the reference.
+        Sharded logits come back in ``pin_vocab``'s layout, reduced where
+        the unembedding is sharded on d (a jitted step cannot return a
+        pending sum, so the reference all-reduces them there)."""
         c, tokens = self.cfg, batch["tokens"]
         kind = stack_kind(c)
         route = self._serve_route()
@@ -187,7 +190,7 @@ class Model:
                 lg, cache, _ = stacks.zamba2_forward(c, params, tokens,
                                                      state=cache,
                                                      use_flash=route)
-        return lg, cache
+        return pin_vocab(lg), cache
 
     def _serve_route(self) -> Any:
         """None (the kernels), or the training route."""
@@ -196,7 +199,7 @@ class Model:
     def decode_step(self, params: nn.Module, cache: Any, batch: Batch
                     ) -> Tuple[torch.Tensor, Any]:
         """One new token, (B, 1) or (B, K, 1), against the cache at
-        ``cache_index``."""
+        ``cache_index``; logits in ``prefill``'s layout."""
         c, tokens = self.cfg, batch["tokens"]
         idx = int(batch["cache_index"])
         kind = stack_kind(c)
@@ -213,7 +216,7 @@ class Model:
                 lg, cache, _ = stacks.zamba2_forward(
                     c, params, tokens, state=cache, cache_index=idx,
                     decode=True, use_flash=route)
-        return lg, cache
+        return pin_vocab(lg), cache
 
     # ---------------- shape builders (data pipeline) ----------------
     def batch_shapes(self, kind: str, batch: int, seq: int

@@ -10,6 +10,7 @@ Tolerances:
 - per-device FLOPs on a fake 16x16 mesh: exactly 1/256 of the logical.
 """
 import json
+import math
 import types
 
 import jax
@@ -641,3 +642,103 @@ def test_audio_codebooks_reduce_each_lookup(kind, no_kernel):
     if kind == "decode":
         assert colls["all-reduce_count"] == 2 * cfg.n_layers + cfg.n_codebooks
         assert colls["all-gather_count"] == 1
+
+
+# ---- the serving steps' logits, kv heads that span devices ----
+# `internvl2-1b` cut to 2 layers and d_model 128, its 14 query heads and
+# 2 kv heads, 16 patches, and a vocab of 1031, which does not divide the
+# 16-way `model` axis: the rules shard the tied embedding on d, so the
+# residual stream runs on d shards and the logits are partial sums the
+# serving steps reduce (F18: they came back pending, and the dry run
+# counted no logits all-reduce, 0.09-0.11 of the reference's bytes at
+# full width). `qwen2-72b` cut to 2 layers with 32 query heads and 4 kv
+# heads on 16 devices: each device projects the one kv head its q heads
+# share, and the cache holds the kv heads over "model_h" of a `model`
+# split 4 x 4, as the reference's decode step hands it back (each device
+# gathered its kv head back into a cache replicated over `model`:
+# 0.5621 of the reference's bytes at full width).
+VOCAB_CUT = dict(n_layers=2, d_model=128, n_heads=14, n_kv_heads=2,
+                 d_head=64, d_ff=256, vocab_size=1031, n_patches=16)
+KV_SPLIT_CUT = dict(n_layers=2, d_model=256, n_heads=32, n_kv_heads=4,
+                    d_head=16, d_ff=512, vocab_size=1024)
+SERVE_CELLS = {
+    "odd_vocab_prefill": ("internvl2-1b", VOCAB_CUT,
+                          ("prefill_s", "prefill", 64, 32)),
+    "odd_vocab_decode": ("internvl2-1b", VOCAB_CUT,
+                         ("decode_s", "decode", 128, 64)),
+    "kv_split_decode": ("qwen2-72b", KV_SPLIT_CUT,
+                        ("decode_s", "decode", 128, 64)),
+}
+# Collective bytes over the reference's, from the op-by-op lists of
+# ``scripts/dryrun_collectives.py``: the same all-reduces and gathers,
+# bf16 against the reference's f32. Measured 0.5007 (both odd-vocab
+# cells, both meshes: the f32 variance all-reduces of the norms equal
+# the reference's) and 0.5000 (the kv-split cell). Before, 0.3977 and
+# 0.3289 (odd-vocab prefill and decode: no logits all-reduce, the MLP's
+# partial sums reduce-scattered, k and v reduced twice in prefill) and
+# 0.7000 (kv split: each kv head gathered into the cache).
+SERVE_COLL_BAND = (0.45, 0.55)
+
+
+@pytest.fixture(scope="module")
+def serve_reference():
+    """The reference's rows of every ``SERVE_CELLS`` cell on both meshes,
+    in one subprocess."""
+    keys = [(name, m) for name in SERVE_CELLS for m in ("single", "multi")]
+    rows = _reference_rows([[SERVE_CELLS[n][0], SERVE_CELLS[n][1],
+                             SERVE_CELLS[n][2], m] for n, m in keys])
+    return dict(zip(keys, rows))
+
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+@pytest.mark.parametrize("name", list(SERVE_CELLS))
+def test_serving_cells_match_the_reference(serve_reference, name, mesh_name,
+                                           no_kernel):
+    """Prefill and decode with a vocab that does not divide `model`, and
+    decode with kv heads that do not: per-device FLOPs equal the
+    reference's ``analyze_cell`` on the same config, cell and mesh, and
+    collective bytes lie in ``SERVE_COLL_BAND`` of its."""
+    arch, kw, cell = SERVE_CELLS[name]
+    ref_flops, ref_coll = serve_reference[(name, mesh_name)]
+    row = _port_row(arch, kw, cell, mesh_name)
+    assert row["status"] == "ok" and no_kernel == []
+    assert row["flops_per_device"] == pytest.approx(ref_flops, rel=FLOP_RTOL)
+    lo, hi = SERVE_COLL_BAND
+    assert lo <= row["collective_bytes_per_device"] / ref_coll <= hi
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_serving_logits_come_back_reduced(kind, monkeypatch, no_kernel):
+    """The odd-vocab cut cell on the fake 16x16 mesh: the logits the
+    serving step returns are no pending partial sum (batch shards over
+    `data`, whole over `model`, as the reference's step returns them:
+    ``bf16[8,1,151655]`` a device at full width), and the step's
+    collectives hold their all-reduce (B / 16, S, V)."""
+    from repro_torch.models import registry
+
+    cfg = dryrun.ARCHS["internvl2-1b"].replace(**VOCAB_CUT)
+    cell = ShapeCell(*SERVE_CELLS[f"odd_vocab_{kind}"][2])
+    seen, logs = [], []
+    real = getattr(registry.Model, kind if kind == "prefill"
+                   else "decode_step")
+
+    def step(self, *a):
+        lg, cache = real(self, *a)
+        seen.append(tuple(lg.placements))
+        return lg, cache
+
+    def counter():
+        logs.append(_CollectiveLog())
+        return logs[-1]
+
+    monkeypatch.setattr(registry.Model, kind if kind == "prefill"
+                        else "decode_step", step)
+    monkeypatch.setattr(dryrun, "OpCounter", counter)
+    with process_group("fake", 256):
+        mesh = make_production_mesh()
+        row = dryrun.analyze_cell("internvl2-1b", cfg, cell, mesh, "single")
+    assert row["status"] == "ok" and no_kernel == []
+    assert seen == [(Shard(0), Replicate())]
+    S = cell.seq_len if kind == "prefill" else 1
+    want = (cell.global_batch // 16, S, cfg.vocab_size)
+    assert ("all-reduce", want, 2 * math.prod(want)) in logs[0].log
