@@ -14,20 +14,28 @@ Run from the repository root, with nothing else on the command line:
    non-causal, off-tile and GQA-group cases, in fp32 and bf16, and in
    fp32 with q scaled by 8 (a peaked softmax) at the qwen2, moe and
    Zamba2 prefill shapes; the grouped GEMM (K2) at the moe path's
-   shapes, the reference's sweep and (1,1,1,1), densely and with
-   ``rows`` (occupied rows per expert) as the moe path passes them.
+   shapes, the reference's sweep, (1,1,1,1) and shapes TMA cannot copy,
+   densely and with ``rows`` (occupied rows per expert) as the moe path
+   passes them, at the prefill shapes also with NaN past ``rows`` and
+   with x scaled by 8, every prefill case also held to the product in
+   float64, and each case's variant (gmm_small, gmm_wgmma or gmm_large)
+   checked. The build fails the run if ``ptxas`` spills in gmm_wgmma.
 3. Dense engine: serves full-width qwen2-0.5b (random weights drawn on
    the card from a seed) through ``ServeEngine.generate``, checks that
    every layer's prefill attention went through K1 (each launch's device
-   time read from CUDA events around it), and holds the card against the
-   port's CPU path at full depth on weights drawn on the CPU.
+   time read from CUDA events around it, and from a torch.profiler trace
+   of a repeat of the run), and holds the card against the port's CPU
+   path at full depth on weights drawn on the CPU.
 4. Moe engine: serves full-width, 24-layer qwen2-moe-a2.7b in fp32
    (14.3 B parameters, 57 GB, drawn on the card from a CUDA generator)
    through ``ServeEngine.generate``, checks that every prefill
    attention went through K1 and every expert GEMM through K2 (counted
-   by kernel, phase and shape, each launch's device time read from CUDA
-   events around it, K2's ``rows`` read after the run), then holds the
-   card against the CPU path at full width and 2 layers.
+   by kernel, phase and shape, and K2 by variant: every prefill launch on
+   the tensor-core gmm_wgmma; each launch's device time read from CUDA
+   events around it and from a torch.profiler trace of a repeat of the
+   run, which is not traced itself: the profiler slows its host-bound
+   decode; K2's ``rows`` read after it), then holds the card against the
+   CPU path at full width and 2 layers.
 5. Zamba2 engine: serves zamba2-7b at its full
    width and depth in fp32 (81 Mamba2 layers and 13 applications of the
    shared attention block, 6.75 B parameters, 27 GB, drawn on the card)
@@ -81,10 +89,11 @@ Run from the repository root, with nothing else on the command line:
 11. Timing: times each kernel at each of its main-path shapes, its plain
     version and the PyTorch library call that computes the same
     function (with the kernels that call ran, from torch.profiler),
-    beside the least time the card could take for the same work, and
-    beside its device time per launch inside the main run; K1 also in
-    bf16; K2 also with the ``rows`` of the main run, beside the least
-    time for what those rows need.
+    beside the least time the card could take for the same work (fp32:
+    on the CUDA cores and as 3xTF32 on the tensor cores), and beside its
+    device time per launch inside the main run (from the trace of its
+    repeat); K1 also in bf16; K2 also with the ``rows`` of the main run,
+    beside the least time for what those rows need.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}``
 line before the last line, which is ``{"ok": true, "device": {...}}``.
@@ -230,31 +239,48 @@ def gmm_inputs(E, C, d, f, dtype, seed):
     return x.to(dtype), w.to(dtype)
 
 
-def gmm_bound(E, C, d, f, dtype):
-    """(ms, "bytes" | "operations"): the least time an H100 could take
-    for (E, C, d) x (E, d, f). Operations are every slot's multiply-adds
-    (the moe path computes every capacity slot, empty or not); bytes read
-    x and w once and write the output once."""
-    ops = 2 * E * C * d * f
+def gmm_routes(ops: float, nbytes: float, dtype) -> dict:
+    """{"bound_ms", "bound_by", ...}: the least time an H100 could take
+    for ``ops`` operations (2 per multiply-add) and ``nbytes`` moved, as
+    ``attention_bound`` states it. bf16: operations at the bf16
+    tensor-core peak. fp32: the lesser of two bounds, both given: the
+    operations at the fp32 peak of the CUDA cores, and 3xTF32's three
+    tf32 products per operation at the tf32 tensor-core peak (the route
+    of the prefill variant, gmm_wgmma), each beside the bytes."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+
+    def bound(t_ops):
+        return (max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    if dtype != torch.float32:
+        ms, by = bound(ops / H100_BF16_FLOPS * 1e3)
+        return {"bound_ms": ms, "bound_by": by}
+    fp32, tf32x3 = (bound(ops / H100_FP32_FLOPS * 1e3),
+                    bound(3 * ops / H100_TF32_FLOPS * 1e3))
+    ms, by = min(fp32, tf32x3)
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_fp32_ms": fp32[0], "bound_fp32_by": fp32[1],
+            "bound_3xtf32_ms": tf32x3[0], "bound_3xtf32_by": tf32x3[1]}
+
+
+def gmm_bound(E, C, d, f, dtype) -> dict:
+    """``gmm_routes`` for (E, C, d) x (E, d, f): every slot's multiply-adds
+    (the moe path computes every capacity slot, empty or not); x and w
+    read once, the output written once."""
     elt = torch.finfo(dtype).bits // 8
-    nbytes = elt * E * (C * d + d * f + C * f)
-    peak = H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
-    t_ops, t_bytes = ops / peak, nbytes / H100_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return gmm_routes(2 * E * C * d * f, elt * E * (C * d + d * f + C * f),
+                      dtype)
 
 
-def gmm_rows_bound(rows: torch.Tensor, C, d, f, dtype):
-    """(bytes ms, operations ms) an H100 needs at least for one K2 launch
-    with ``rows`` (E,): the weights of the experts with rows[e] > 0,
-    x's rows below rows[e], all of o written once; 2 rows[e] d f
-    operations per expert."""
+def gmm_rows_bound(rows: torch.Tensor, C, d, f, dtype) -> dict:
+    """``gmm_routes`` for one K2 launch with ``rows`` (E,): 2 rows[e] d f
+    operations per expert; the weights of the experts with rows[e] > 0,
+    x's rows below rows[e] and all of o written once."""
     r = rows.clamp(0, C).double()
     elt = torch.finfo(dtype).bits // 8
     nbytes = elt * ((r > 0).sum() * d * f + r.sum() * d + r.numel() * C * f)
-    peak = H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
-    return (float(nbytes) / H100_BYTES_PER_S * 1e3,
-            float(2 * r.sum() * d * f) / peak * 1e3)
+    return gmm_routes(float(2 * r.sum() * d * f), float(nbytes), dtype)
 
 
 def gmm_rows(kind, E, C, seed=0):
@@ -424,57 +450,104 @@ def kernel_phase(fa, gm, ref, cfgs) -> None:
               f"(case {i}, {dtype}, q x{scale})")
 
     # (E, C, d, f): the moe path's prefill gate/up and down and its
-    # decode step, the reference's sweep (ragged edges), one element
+    # decode step, the reference's sweep (ragged edges), one element;
+    # then f and d that TMA cannot copy (not multiples of 4 fp32)
     E, d, d_e = moe_cfg.n_experts, moe_cfg.d_model, moe_cfg.d_expert
     pre, dec = moe_rows(moe_cfg, 4, 500), moe_rows(moe_cfg, 4, 1)
     cases = [(E, pre, d, d_e), (E, pre, d_e, d), (E, dec, d, d_e),
              (4, 128, 256, 128), (2, 64, 512, 96), (6, 100, 300, 130),
-             (1, 1, 1, 1)]
+             (1, 1, 1, 1), (6, 100, 302, 128)]
+
+    def variant_of(x, w, C, d_, f):
+        """The variant the wrapper picks: gmm_small at C <= 32, gmm_wgmma
+        for fp32 that TMA can copy, else gmm_large."""
+        if C <= 32:
+            return "gmm_small"
+        if x.dtype == torch.float32 and d_ % 4 == 0 and f % 4 == 0:
+            return "gmm_wgmma"
+        return "gmm_large"
+
+    def run(x, w, rows=None):
+        before = dict(gm.route_launches)
+        out = gm.grouped_matmul(x, w, rows)
+        torch.cuda.synchronize()
+        return out, [k for k, n in gm.route_launches.items()
+                     if n != before[k]]
+
     for i, (E_, C, d_, f) in enumerate(cases):
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             x, w = gmm_inputs(E_, C, d_, f, dtype, seed=100 + i)
-            out = gm.grouped_matmul(x, w)
+            out, ran = run(x, w)
             want = ref.grouped_matmul_ref(x, w)
-            torch.cuda.synchronize()
             out, want = out.float(), want.float()
             err = (out - want).abs().max().item()
             ok = out.shape == (E_, C, f) and torch.allclose(
                 out, want, rtol=tol, atol=tol)
-            print(f"kernel grouped_matmul E={E_} C={C} d={d_} f={f} {dtype}: "
-                  f"max|d|={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
+            print(f"kernel grouped_matmul E={E_} C={C} d={d_} f={f} {dtype} "
+                  f"({ran[0]}): max|d|={err:.3e} tol={tol:g} "
+                  f"{'ok' if ok else 'FAIL'}")
             check(bool(torch.isfinite(out).all()) and ok,
                   f"grouped_matmul disagrees with its plain version "
                   f"(case {i}, {dtype})")
+            check(ran == [variant_of(x, w, C, d_, f)],
+                  f"grouped_matmul case {i} ({dtype}) ran {ran}")
 
     # the same with rows: x zero past rows[e], as the moe path packs it;
-    # the rows past rows[e] must come out exactly 0
+    # the rows past rows[e] must come out exactly 0. "nan": NaN in x past
+    # rows[e] and in the weights of experts with no row, which must reach
+    # no output; "x8": x scaled by 8, held to the plain version computed
+    # in float64 (the fp32 plain version is itself up to 1.1e-4 off it
+    # there), as every prefill case is too
     cases = [((E, dec, d, d_e), "decode"), ((E, dec, d_e, d), "decode"),
              ((E, pre, d, d_e), "ragged"), ((E, pre, d_e, d), "ragged"),
              ((E, dec, d, d_e), "zero"), ((E, pre, d_e, d), "zero"),
              ((E, dec, d, d_e), "full"), ((E, pre, d, d_e), "full"),
+             ((E, pre, d_e, d), "full"),
+             ((E, pre, d, d_e), "nan"), ((E, pre, d_e, d), "nan"),
+             ((E, pre, d, d_e), "x8"), ((E, pre, d_e, d), "x8"),
              ((4, 128, 256, 128), "ragged"), ((2, 64, 512, 96), "ragged"),
              ((6, 100, 300, 130), "ragged"), ((6, 20, 300, 130), "ragged"),
              ((2, 1, 1, 1), "ragged")]
     for i, ((E_, C, d_, f), kind) in enumerate(cases):
-        rows = gmm_rows(kind, E_, C, seed=i)
+        rows = gmm_rows("ragged" if kind in ("nan", "x8") else kind, E_, C,
+                        seed=i)
         live = torch.arange(C, device="cuda") < rows[:, None]
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            if kind in ("nan", "x8") and dtype != torch.float32:
+                continue
             x, w = gmm_inputs(E_, C, d_, f, dtype, seed=200 + i)
-            x = torch.where(live[..., None], x, 0)
-            out = gm.grouped_matmul(x, w, rows)
-            want = ref.grouped_matmul_ref(x, w, rows)
-            torch.cuda.synchronize()
-            out, want = out.float(), want.float()
-            err = (out - want).abs().max().item()
+            x = torch.where(live[..., None], x * (8 if kind == "x8" else 1),
+                            0)
+            want = ref.grouped_matmul_ref(x, w, rows).float()
+            exact = None
+            if C > 32 and dtype == torch.float32:
+                exact = torch.where(live[..., None], torch.einsum(
+                    "ecd,edf->ecf", x.double(), w.double()), 0)
+            if kind == "nan":
+                x = torch.where(live[..., None], x, float("nan"))
+                w[rows == 0] = float("nan")
+            out, ran = run(x, w, rows)
+            out = out.float()
+            held = want if kind != "x8" else exact.float()
+            err = (out - held).abs().max().item()
             ok = out.shape == (E_, C, f) and torch.allclose(
-                out, want, rtol=tol, atol=tol) and not out[~live].any()
+                out, held, rtol=tol, atol=tol) and not out[~live].any()
+            note = ""
+            if exact is not None:
+                err64 = (out.double() - exact).abs().max().item()
+                ok = ok and torch.allclose(out.double(), exact, rtol=tol,
+                                           atol=tol)
+                note = (f"; to float64 {err64:.3e} (the fp32 plain version "
+                        f"{(want.double() - exact).abs().max().item():.3e})")
             print(f"kernel grouped_matmul E={E_} C={C} d={d_} f={f} rows="
                   f"{kind} (sum {int(rows.sum())}, {int((rows > 0).sum())} "
-                  f"experts) {dtype}: max|d|={err:.3e} tol={tol:g} "
-                  f"{'ok' if ok else 'FAIL'}")
+                  f"experts) {dtype} ({ran[0]}): max|d|={err:.3e}{note} "
+                  f"tol={tol:g} {'ok' if ok else 'FAIL'}")
             check(bool(torch.isfinite(out).all()) and ok,
                   f"grouped_matmul with rows disagrees with its plain "
                   f"version (case {i}, {kind}, {dtype})")
+            check(ran == [variant_of(x, w, C, d_, f)],
+                  f"grouped_matmul rows case {i} ({dtype}) ran {ran}")
 
 
 @torch.inference_mode()
@@ -537,6 +610,8 @@ def serve(eng, cfg, counters, watch=contextlib.nullcontext(), n_new=64):
     torch.cuda.reset_peak_memory_stats()
     for mod in counters:
         mod.launches = 0
+        for variant in getattr(mod, "route_launches", {}):
+            mod.route_launches[variant] = 0
     with watch:
         res = eng.generate(prompts, n_new=n_new)
     launches = {mod.__name__.rsplit(".", 1)[-1]: mod.launches
@@ -555,17 +630,28 @@ def serve(eng, cfg, counters, watch=contextlib.nullcontext(), n_new=64):
     return prompts, launches, engine
 
 
+# The kernels of the port's two wrappers by name in a torch.profiler trace
+# (each launch of a wrapper runs exactly one of them).
+TRACED_KERNELS = {"flash_attention": "flash_fwd_kernel",
+                  "grouped_matmul": "gmm_"}
+
+
 @contextlib.contextmanager
-def in_path(fa, gm, model, tally: dict):
+def in_path(fa, gm, model, tally: dict, trace: bool = False):
     """While active, K1's and K2's launches are tallied by kernel, phase
-    and shape in ``tally[(kernel, phase, shape)] = [launches, device ms,
-    rows]``: the phase is "prefill" until ``model``'s first
-    ``decode_step`` and "decode" after it; K1's shape is (B, Sq, Sk, H,
-    Hkv, hd), K2's (E, C, d, f). A launch's device time is read from CUDA
-    events recorded on the stream just before and just after it, and
-    ``rows`` stacks each K2 launch's ``rows`` (read after the run, not
-    during it; None for K1). The wrappers' own counts are left as they
-    are."""
+    and shape in ``tally[(kernel, phase, shape)]``, a dict of
+    ``launches``, ``event_ms`` (CUDA events recorded on the stream just
+    before and just after each launch: on an idle device the start event
+    fires before the host has enqueued the kernel, so this counts host
+    time too), ``traced_ms`` (with ``trace``: the device time of their
+    kernels, from the records of a torch.profiler trace of the run;
+    else None) and ``rows`` (each K2 launch's ``rows`` stacked, read
+    after the run, not during it; None for K1). The phase is "prefill"
+    until ``model``'s first ``decode_step`` and "decode" after it; K1's
+    shape is (B, Sq, Sk, H, Hkv, hd), K2's (E, C, d, f). The wrappers'
+    own counts are left as they are."""
+    from torch.profiler import ProfilerActivity, profile
+
     real_fa, real_gm = fa._launch, gm._launch
     phase, events = ["prefill"], []
 
@@ -592,24 +678,61 @@ def in_path(fa, gm, model, tally: dict):
 
     fa._launch, gm._launch, model.decode_step = fa_launch, gm_launch, \
         decode_step
+    prof = profile(activities=[ProfilerActivity.CUDA]) if trace else \
+        contextlib.nullcontext()
     try:
-        yield
+        with prof:
+            yield
+            torch.cuda.synchronize()
     finally:
         fa._launch, gm._launch = real_fa, real_gm
         del model.decode_step
     torch.cuda.synchronize()
+    if trace:
+        traced = {name: sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and part in e.name), key=lambda e: e.time_range.start)
+            for name, part in TRACED_KERNELS.items()}
+        for name, kernels in traced.items():
+            n = sum(1 for ev in events if ev[0] == name)
+            check(len(kernels) == n, f"the trace holds {len(kernels)} {name} "
+                  f"kernels for {n} launches")
+    seen = dict.fromkeys(TRACED_KERNELS, 0)
     rows_by_key: dict = {}
     for name, ph, shape, start, end, rows in events:
         key = (name, ph, shape)
-        n_ms = tally.setdefault(key, [0, 0.0, None])
-        n_ms[0] += 1
-        n_ms[1] += start.elapsed_time(end)
+        t = tally.setdefault(key, {"launches": 0, "event_ms": 0.0,
+                                   "traced_ms": 0.0 if trace else None,
+                                   "rows": None})
+        t["launches"] += 1
+        if trace:
+            t["traced_ms"] += traced[name][seen[name]].time_range.elapsed_us(
+                ) / 1e3
+            seen[name] += 1
+        t["event_ms"] += start.elapsed_time(end)
         if name == "grouped_matmul":
             rows_by_key.setdefault(key, []).append(rows)
     for key, rows in rows_by_key.items():
         check(all(r is not None for r in rows),
               f"a moe K2 launch at {key} had no rows")
-        tally[key][2] = torch.stack(rows).cpu()
+        tally[key]["rows"] = torch.stack(rows).cpu()
+
+
+def traced_repeat(fa, gm, eng, prompts, n_new: int, tally: dict) -> None:
+    """The main run once more, same prompts, under torch.profiler: its
+    K1 and K2 launches by phase and shape must equal the main run's
+    ``tally``, and the device time of their kernels in the trace becomes
+    ``tally[key]["traced_ms"]``. The main run itself is not traced: the
+    profiler slows its host-bound decode steps about 2.2 times."""
+    again: dict = {}
+    with in_path(fa, gm, eng.model, again, trace=True):
+        eng.generate(prompts, n_new=n_new)
+    check({k: t["launches"] for k, t in again.items()}
+          == {k: t["launches"] for k, t in tally.items()},
+          f"{eng.cfg.name}: the traced repeat launched other kernels")
+    for key, t in again.items():
+        tally[key]["traced_ms"] = t["traced_ms"]
 
 
 def check_k1_in_path(cfg, tally: dict) -> None:
@@ -618,7 +741,8 @@ def check_k1_in_path(cfg, tally: dict) -> None:
     n = attention_layers(cfg)
     want = {("flash_attention", "prefill", prefill_attention(cfg)[:6]): n
             } if n else {}
-    got = {k: n for k, (n, _, _) in tally.items() if k[0] == "flash_attention"}
+    got = {k: t["launches"] for k, t in tally.items()
+           if k[0] == "flash_attention"}
     check(got == want, f"{cfg.name} K1 launches by phase and shape {got}, "
           f"want {want}")
 
@@ -643,16 +767,17 @@ def draw_on_card(cfg):
 
 def moe_engine_phase(fa, gm, cfg):
     """Full-width, full-depth moe serving on the card, weights drawn on
-    the card. Returns K1's and K2's launches and in-path device time by
-    phase and shape, and the engine's numbers, all from the main path's
-    run."""
+    the card. Returns K1's and K2's launches, rows and device time by
+    CUDA events by phase and shape, and the engine's numbers, all from
+    the main path's run, and each launch's device time from a trace of
+    its repeat (``traced_repeat``)."""
     from repro_torch import ServeEngine
 
     eng = ServeEngine(cfg, params=draw_on_card(cfg), max_seq=1024,
                       device="cuda")
     tally: dict = {}
-    _, launches, engine = serve(eng, cfg, (fa, gm),
-                                in_path(fa, gm, eng.model, tally))
+    prompts, launches, engine = serve(eng, cfg, (fa, gm),
+                                      in_path(fa, gm, eng.model, tally))
     L, want = cfg.n_layers, 3 * cfg.n_layers * (1 + 64)
     check(launches["flash_attention"] == L,
           f"moe prefill made {launches['flash_attention']} flash_attention "
@@ -671,15 +796,27 @@ def moe_engine_phase(fa, gm, cfg):
         want_tally[(phase, (E, C, d_e, d))] = L * steps
     k2 = {(ph, s): v for (name, ph, s), v in tally.items()
           if name == "grouped_matmul"}
-    got = {k: n for k, (n, _, _) in k2.items()}
+    got = {k: t["launches"] for k, t in k2.items()}
     print("moe main path K2 launches by phase and (E, C, d, f): "
           + json.dumps({f"{ph} {list(s)}": n for (ph, s), n in got.items()}))
     check(got == want_tally, f"moe K2 launches by phase and shape {got}, "
           f"want {want_tally}")
-    engine["k2_in_path_ms"] = {
-        phase: sum(ms for (ph, _), (_, ms, _) in k2.items() if ph == phase)
-        for phase in ("prefill", "decode")}
-    for (ph, shape), (_, _, rows) in k2.items():
+    # every prefill launch (C > 32, fp32) on the tensor-core variant,
+    # every decode launch on the byte-streaming one
+    n_pre = sum(n for (ph, _), n in got.items() if ph == "prefill")
+    want_routes = {"gmm_small": want - n_pre, "gmm_wgmma": n_pre,
+                   "gmm_large": 0}
+    print("moe main path K2 launches by variant: "
+          + json.dumps(gm.route_launches))
+    check(gm.route_launches == want_routes, f"moe K2 launches by variant "
+          f"{gm.route_launches}, want {want_routes}")
+    traced_repeat(fa, gm, eng, prompts, 64, tally)
+    for key in ("traced_ms", "event_ms"):
+        engine[f"k2_in_path_{key}"] = {
+            phase: sum(t[key] for (ph, _), t in k2.items() if ph == phase)
+            for phase in ("prefill", "decode")}
+    for (ph, shape), t in k2.items():
+        rows = t["rows"]
         active = (rows > 0).sum(dim=1).double()
         print(f"moe {ph} K2 {list(shape)} rows per launch: mean active "
               f"experts {float(active.mean()):.4f} (max {int(active.max())}),"
@@ -700,23 +837,29 @@ def family_engine_phase(fa, gm, cfg, n_new: int):
     card, weights drawn on the card: one K1 launch per full-sequence
     attention of the prefill (one a layer, 13 for Zamba2's shared block,
     none for xLSTM), none in decode, no K2. Returns K1's launches and
-    in-path device time by phase and shape, and the engine's numbers, all
-    from the main path's run."""
+    device time by CUDA events by phase and shape, and the engine's
+    numbers, all from the main path's run, and each launch's device time
+    from a trace of its repeat (``traced_repeat``)."""
     from repro_torch import ServeEngine
 
     eng = ServeEngine(cfg, params=draw_on_card(cfg), max_seq=1024,
                       device="cuda")
     tally: dict = {}
-    _, launches, engine = serve(eng, cfg, (fa, gm),
-                                in_path(fa, gm, eng.model, tally), n_new)
+    prompts, launches, engine = serve(eng, cfg, (fa, gm),
+                                      in_path(fa, gm, eng.model, tally),
+                                      n_new)
     n = attention_layers(cfg)
     check(launches["flash_attention"] == n,
           f"{cfg.name} prefill made {launches['flash_attention']} "
           f"flash_attention launches, want {n}")
     check(launches["grouped_matmul"] == 0, f"the {cfg.name} path ran K2")
     check_k1_in_path(cfg, tally)
-    engine["k1_in_path_ms"] = sum(ms for (name, _, _), (_, ms, _)
-                                  in tally.items() if name == "flash_attention")
+    if n:
+        traced_repeat(fa, gm, eng, prompts, n_new, tally)
+    for key in ("traced_ms", "event_ms"):
+        engine[f"k1_in_path_{key}"] = sum(
+            t[key] for (name, _, _), t in tally.items()
+            if name == "flash_attention")
     print(f"{cfg.name} engine: " + json.dumps(engine))
     del eng
     gc.collect()
@@ -841,8 +984,9 @@ def k1_row(fa, ref, model, shape, dtype, tally=None):
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
 
-    launches, in_path_ms = (tally or {}).get(
-        ("flash_attention", "prefill", shape[:6]), (0, 0.0, None))[:2]
+    t = (tally or {}).get(("flash_attention", "prefill", shape[:6]),
+                          {"launches": 0})
+    launches = t["launches"]
     row = {
         "name": "flash_attention",
         "model": model,
@@ -863,7 +1007,8 @@ def k1_row(fa, ref, model, shape, dtype, tally=None):
         "library_kernels": device_kernels(sdpa),
     }
     if launches:
-        row["in_path_ms"] = in_path_ms / launches
+        row["in_path_ms"] = t["traced_ms"] / launches
+        row["in_path_event_ms"] = t["event_ms"] / launches
     return row
 
 
@@ -872,14 +1017,17 @@ def timing_phase(fa, gm, ref, tallies, cfgs):
     that has attention (qwen2-0.5b, qwen2-moe-a2.7b, zamba2-7b,
     internvl2-1b, musicgen-large) and K2 at each of the moe path's four
     shapes, fp32 (the main paths' dtype), each with its launches on its
-    model's main path and its device time per launch in that run
-    (``in_path_ms``). K2's ``ms``, ``plain_ms``, ``bound_ms`` and
-    ``library_ms`` are the dense product (no rows), like for like with
-    ``torch.bmm``. A K2 row also carries, per launch of the main run: its
-    time alone with the run's rows (``in_path_alone_ms``), the least time
-    those rows need (``in_path_bound_ms``), and the mean active experts
-    and rows. K1 in bf16 (no launch on the main path) is printed on
-    lines of its own."""
+    model's main path and its device time per launch in that run, from
+    the trace of its repeat (``in_path_ms``; ``in_path_event_ms`` from
+    CUDA events around each launch of the run). K2's ``ms``,
+    ``plain_ms``, bounds and ``library_ms`` are the dense product (no
+    rows), like for like with ``torch.bmm``; its rows name the variant
+    that ran. A K2 row also
+    carries, per launch of the main run: its time alone with the run's
+    rows (``in_path_alone_ms``), the least time those rows need on each
+    route (``in_path_bound_*``), and the mean active experts and rows.
+    K1 in bf16 (no launch on the main path) is printed on lines of its
+    own."""
     moe_cfg = cfgs["qwen2-moe-a2.7b"]
     moe_tally = tallies[moe_cfg.name]
     kernels = [k1_row(fa, ref, name, prefill_attention(cfgs[name]),
@@ -891,44 +1039,54 @@ def timing_phase(fa, gm, ref, tallies, cfgs):
               + json.dumps(k1_row(fa, ref, name, prefill_attention(cfgs[name]),
                                   torch.bfloat16)))
 
-    for (kernel, phase, shape), (n, in_path_ms, rows) in moe_tally.items():
+    for (kernel, phase, shape), t in moe_tally.items():
         if kernel != "grouped_matmul":
             continue
         E, C, d, f = shape
+        n, rows = t["launches"], t["rows"]
         x, w = gmm_inputs(E, C, d, f, torch.float32, seed=98)
         err = (gm.grouped_matmul(x, w)
                - ref.grouped_matmul_ref(x, w)).abs().max().item()
-        bound_ms, bound_by = gmm_bound(E, C, d, f, torch.float32)
-        # the main run's rows: each launch's bound, and K2 alone cycling
+        before = dict(gm.route_launches)
+        gm.grouped_matmul(x, w)
+        variant = next(k for k, v in gm.route_launches.items()
+                       if v != before[k])
+        # the main run's rows: each launch's bounds, and K2 alone cycling
         # through the first 50 launches' rows
         per_launch = [gmm_rows_bound(r, C, d, f, torch.float32) for r in rows]
-        t_bytes = sum(b for b, _ in per_launch) / n
-        t_ops = sum(o for _, o in per_launch) / n
         some = itertools.cycle([r.cuda() for r in rows[:50]])
-        kernels.append({
+        row = {
             "name": "grouped_matmul",
             "model": moe_cfg.name,
             "phase": phase,
             "shape": [E, C, d, f],
             "dtype": "float32",
             "route": "cuda",
+            "variant": variant,
+            "products": ("3xTF32 wgmma" if variant == "gmm_wgmma"
+                         else "fp32 FMA"),
             "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
             "replaces": "src/repro/kernels/moe_gmm.py:21",
             "launches": n,
-            "in_path_ms": in_path_ms / n,
+            "in_path_ms": t["traced_ms"] / n,
+            "in_path_event_ms": t["event_ms"] / n,
             "in_path_alone_ms": cuda_ms(
                 lambda: gm.grouped_matmul(x, w, next(some))),
-            "in_path_bound_ms": sum(max(b, o) for b, o in per_launch) / n,
-            "in_path_bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "mean_active_experts": float((rows > 0).sum(dim=1).double().mean()),
             "mean_rows": float(rows.sum(dim=1).double().mean()),
             "max_abs_err": err,
             "ms": cuda_ms(lambda: gm.grouped_matmul(x, w)),
             "plain_ms": cuda_ms(lambda: ref.grouped_matmul_ref(x, w)),
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            **gmm_bound(E, C, d, f, torch.float32),
             "library_ms": cuda_ms(lambda: torch.bmm(x, w)),
-        })
+        }
+        for key in ("bound_ms", "bound_fp32_ms", "bound_3xtf32_ms"):
+            row[f"in_path_{key}"] = sum(b[key] for b in per_launch) / n
+        for key in ("bound_by", "bound_fp32_by", "bound_3xtf32_by"):
+            row[f"in_path_{key}"] = max(
+                ("bytes", "operations"),
+                key=[b[key] for b in per_launch].count)
+        kernels.append(row)
     return kernels
 
 
@@ -1461,10 +1619,17 @@ def main() -> int:
 
     _build.build()
     phase_done("build")
+    kernel = ""
     for lib, log in _build.logs.items():   # -Xptxas -v: registers, spills
         for line in log.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
+            if any(k in line for k in ("Compiling entry", "Used", "spill",
+                                       "wgmma")):
                 print(f"ptxas {lib}: {line.split('ptxas info    : ')[-1]}")
+            if "Compiling entry" in line:
+                kernel = line
+            elif "spill" in line and "gmm_wgmma" in kernel:
+                check(" 0 bytes spill stores, 0 bytes spill loads" in line,
+                      f"ptxas spills in gmm_wgmma: {line}")
 
     cfgs = {k: ARCHS[k] for k in ("qwen2-0.5b", "qwen2-moe-a2.7b",
                                   "zamba2-7b", "internvl2-1b",
@@ -1514,20 +1679,24 @@ def main() -> int:
             continue
         engine = engines[row["model"]]
         ms = row["in_path_ms"] * row["launches"]
-        print(f"{row['model']} prefill time in flash_attention, measured in "
-              f"the main run: {row['launches']} x {row['in_path_ms']:.4f} ms "
-              f"= {ms:.3f} ms of {engine['prefill_ms']:.2f} ms "
-              f"({100 * ms / engine['prefill_ms']:.1f}%); time alone "
+        print(f"{row['model']} prefill time in flash_attention, traced in "
+              f"a repeat of the main run: {row['launches']} x "
+              f"{row['in_path_ms']:.4f} ms = {ms:.3f} ms of "
+              f"{engine['prefill_ms']:.2f} ms "
+              f"({100 * ms / engine['prefill_ms']:.1f}%); by CUDA events in "
+              f"the run {row['in_path_event_ms']:.4f} ms a launch; time alone "
               f"{row['ms']:.4f} ms")
     moe_engine = engines[moe_cfg.name]
     for phase, total in (("prefill", moe_engine["prefill_ms"]),
                          ("decode", moe_engine["decode_step_ms"] * 64)):
-        ms = moe_engine["k2_in_path_ms"][phase]
+        ms = moe_engine["k2_in_path_traced_ms"][phase]
         alone = sum(r["in_path_alone_ms"] * r["launches"] for r in kernels
                     if r.get("phase") == phase)
-        print(f"moe {phase} time in grouped_matmul, measured in the main "
-              f"run: {ms:.3f} ms of {total:.2f} ms ({100 * ms / total:.1f}%); "
-              f"launches x time alone with the run's rows: {alone:.3f} ms")
+        print(f"moe {phase} time in grouped_matmul, traced in a repeat of "
+              f"the main run: {ms:.3f} ms of {total:.2f} ms "
+              f"({100 * ms / total:.1f}%); by CUDA events in the run "
+              f"{moe_engine['k2_in_path_event_ms'][phase]:.3f} ms; launches x "
+              f"time alone with the run's rows: {alone:.3f} ms")
 
     print(name)
     print(json.dumps({"kernels": kernels}))

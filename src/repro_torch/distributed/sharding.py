@@ -1052,12 +1052,44 @@ def pin_vocab(logits):
     batch shards over (`pod`, `data`), the vocab over `model` where the
     unembedding is vocab-parallel, every other dim whole. The loss reads
     them there (``registry.cross_entropy``), so no device gathers the
-    vocab."""
+    vocab. An audio model's logits (B, S, K, V) on a mesh whose `model`
+    is split over its codebooks (``codebooks_split``) keep the codebooks
+    over ``MODEL_HEADS`` and the vocab over ``MODEL_HD``
+    (``split_codebooks``)."""
     if not isinstance(logits, DTensor):
         return logits
+    mesh = logits.device_mesh
+    if logits.dim() == 4 and splits_model(mesh) and logits.shape[2] == \
+            mesh.size(mesh.mesh_dim_names.index(MODEL_HEADS)):
+        return maybe_constrain(logits, ("pod", "data"), None, MODEL_HEADS,
+                               fit(logits, 3, MODEL_HD))
     return maybe_constrain(logits, ("pod", "data"),
                            *([None] * (logits.dim() - 2)),
                            fit(logits, logits.dim() - 1, MODEL_AX))
+
+
+def codebooks_split(cfg: ModelConfig, M: int) -> int:
+    """The codebooks a serving cell's mesh splits `model` over (0: none):
+    an audio model's vocab-parallel logits (B, S, K*V), each device's
+    slice of one codebook's vocab, are viewed as (B, S, K, V) with the
+    codebooks over ``MODEL_HEADS`` and the vocab over ``MODEL_HD``
+    (``split_codebooks``), as the reference hands them back
+    (musicgen-large's ``bf16[2,32768,1,512]`` a device on 16)."""
+    K = cfg.n_codebooks
+    if cfg.family == "audio" and 1 < K < M and not M % K and not (
+            K * cfg.vocab_padded) % M:
+        return K
+    return 0
+
+
+def split_codebooks(logits, K: int):
+    """Logits (B, S, K*V) viewed as (B, S, K, V): on a mesh whose `model`
+    is split over the K codebooks (``codebooks_split``) as ``split_heads``
+    views heads, with no collective; elsewhere through ``reshape``."""
+    if isinstance(logits, DTensor) and splits_model(logits.device_mesh):
+        return split_heads(logits, K)
+    b, s, kv = logits.shape
+    return reshape(logits, b, s, K, kv // K)
 
 
 def kv_heads(n_heads: int, n_kv: int, hd: int, *ws):

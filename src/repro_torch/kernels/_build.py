@@ -33,6 +33,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     },
     "grouped_matmul": {
         "repro_grouped_matmul": (_I, [_P, _P, _P, _P] + [_I] * 5 + [_P]),
+        "repro_grouped_matmul_route": (_I, [_P, _P, _P] + [_I] * 4),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -11,9 +11,13 @@
 // that row r of expert e is zero when r >= rows[e] (the MoE dispatch
 // packs each expert's tokens as a prefix of its capacity slots). The
 // kernel reads rows[e] itself, clamped to [0, C], so the launch never
-// waits on the host; it writes o[e, r, :] = 0 for those rows without
-// reading x or w for them, and an expert with rows[e] = 0 reads none of
-// its weights. With rows == NULL every row is computed.
+// waits on the host. Output rows at or past rows[e] are written 0 and
+// never depend on x's rows there or on w: a tile of rows that holds no
+// occupied row loads nothing, so an expert with rows[e] = 0 reads none
+// of its weights; where a tile straddles rows[e] (the tensor-core
+// variant's copies are whole boxes of rows), row r of x feeds only
+// output row r, which is written 0. With rows == NULL every row is
+// computed.
 //
 // What differs from the TPU kernel, by design:
 //  * The TPU grid (e, ci, fi, di) walks the reduction axis d as its
@@ -24,49 +28,87 @@
 //    atomics and results are the same from run to run.
 //  * No padding. The reference wrapper pads C to 128 and d to 512 (and
 //    the MoE expert width d_expert = 1408 is no multiple of 512). Here
-//    the ragged C, d and f edges are masked in the kernel: loads past an
-//    edge read 0 and stores past an edge are skipped, so any shape with
-//    non-zero dimensions is right, (1, 1, 1, 1) included.
+//    the ragged C, d and f edges are masked in the kernel (or read as 0
+//    by the copies), so any shape with non-zero dimensions is right,
+//    (1, 1, 1, 1) included.
 //
-// Two variants, chosen from C on the host (which never reads `rows`):
+// Three variants, chosen on the host from the shapes, the type and the
+// pointers alone (repro_grouped_matmul_route; it never reads `rows`):
 //
-//  * C <= 32, bound by bytes (the decode step of qwen2-moe-a2.7b:
-//    (60, 32, 2048) x (60, 2048, 1408) at B = 4, where at most 16
-//    experts hold a token and each at most 4 rows). Its bound counts the
-//    weights of the experts that hold a token, their occupied rows of x
-//    and all of o: about 15 of 60 experts' weights. A block owns one
-//    (expert, 32-column slice of f) and streams that slice of w through
-//    a 2-stage ring of 64-deep chunks in shared memory with 16-byte
-//    cp.async copies, one chunk (8 KB in fp32) in flight while the other
-//    is consumed; the 44-64 column slices of each of the ~15 active
-//    experts give 660-960 blocks, several on every one of the 132 SMs.
-//    Only the occupied rows are computed: the 32 lanes of a block split
-//    those rows and the chunk's depth between them (4 rows: 4 row lanes
-//    x 8 depth lanes) and sum their partial products in shared memory in
-//    a fixed order at the end. (tools/k2_variants.py times other tile
-//    choices.)
-//  * C > 32, bound by fp32 operations (the prefill: (60, 192, 2048) x
-//    (60, 2048, 1408) does 66 GFLOP against 0.85 GB). A register-tiled
-//    SGEMM: a block of 128 threads owns a 64 x 128 output tile (64
-//    divides C = 192, 128 divides 1408 and 2048), each thread an 8 x 8
-//    register tile, so every depth step issues 64 FMAs against four
-//    16-byte shared-memory loads (x is staged transposed, k-major, so
-//    its reads vectorise like w's). w streams through a 3-stage
-//    cp.async ring of 16-deep chunks; the next chunk of x is loaded into
-//    registers during the FMAs and stored transposed after them. Row
-//    tiles at or past rows[e] are zero-filled without any load.
+//  * gmm_small, C <= 32, bound by bytes (the decode step of
+//    qwen2-moe-a2.7b: (60, 32, 2048) x (60, 2048, 1408) at B = 4, where
+//    at most 16 experts hold a token and each at most 4 rows). Its bound
+//    counts the weights of the experts that hold a token, their occupied
+//    rows of x and all of o: about 15 of 60 experts' weights. A block
+//    owns one (expert, 32-column slice of f) and streams that slice of w
+//    through a 2-stage ring of 64-deep chunks in shared memory with
+//    16-byte cp.async copies; the 44-64 column slices of each of the ~15
+//    active experts give 660-960 blocks, several on every one of the 132
+//    SMs. Only the occupied rows are computed: the 32 lanes of a block
+//    split those rows and the chunk's depth between them and sum their
+//    partial products in shared memory in a fixed order at the end.
+//  * gmm_wgmma, C > 32 in fp32 with d and f multiples of 4 and 16-byte
+//    aligned pointers (the prefill: (60, 192, 2048) x (60, 2048, 1408)
+//    for gate and up, (60, 192, 1408) x (60, 1408, 2048) for down).
+//    Dense, it does 66 GFLOP against 0.85 GB, bound by operations: 0.99
+//    ms on the CUDA cores' 67 TFLOP/s, 0.40 ms as 3xTF32 (three tf32
+//    products per multiply-add at 494.7 TFLOP/s). With the moe path's
+//    rows (about 43% of the slots occupied, every expert holding some)
+//    the operations shrink and the bound is bytes: all the weights,
+//    ~0.7 GB, so w must come from device memory about once. The design:
+//    - 3xTF32 on the tensor cores: each operand is split into a big and
+//      a small tf32 part and small*big + big*small + big*big is summed;
+//      both small parts are rounded to tf32 (the tensor cores read only
+//      an operand's top 19 bits), so the dropped small*small term and
+//      the rounding of the small parts are each below 2^-21 of a
+//      product. The tensor cores truncate as they accumulate, so each
+//      W_CHUNK 8-deep steps are summed on them from zero (scale-d 0 on
+//      the first wgmma) and then added to an fp32 accumulator in
+//      registers with a rounded add; a sum chained over d = 2048 would
+//      drift past the 2e-5 tolerance that plain TF32 misses by far.
+//    - The operands are swapped: the block computes o^T = w^T x^T. A
+//      tf32 wgmma reads an operand from shared memory only K-major, and
+//      w (d x f, f contiguous) is not K-major as B, while x (C x d) is.
+//      So B = x^T comes from shared memory as x lies, and A = w^T from
+//      registers: each consumer thread loads its m16n8k8-layout
+//      fragment of the staged w tile and splits it there. For x the big
+//      part is x itself (the tensor cores truncate it) and the small
+//      part, x - trunc(x), goes into a second staged tile in x's layout.
+//    - A block owns W_BM = 128 columns of f (64 a consumer warpgroup,
+//      wgmma M) and W_NT x W_BN = 192 rows of C (wgmma N = 32 an
+//      n-tile), so every w tile is read from device memory once, and x,
+//      1.5 MB an expert, is re-read from L2 by the 11-16 blocks of an
+//      expert, which run next to each other. A producer warpgroup gives
+//      its registers to the two consumers (setmaxnreg): one thread keeps
+//      W_STAGES stages of 32-deep tiles in flight with TMA copies
+//      (128-byte swizzle; 3-D tensor maps whose out-of-range boxes read
+//      0), the other three warps write each stage's small part of x;
+//      mbarriers "full", "ready" and "empty" order the three roles.
+//      Within a stage a consumer issues n-tile t's products into one of
+//      two chunk sums while n-tile t - 1's are added to its accumulator.
+//    - Rows: n-tiles wholly at or past rows[e] are neither copied nor
+//      computed, the count of those left fixed at compile time (ptxas
+//      serializes wgmma whose groups in flight it cannot count), and the
+//      experts with the most occupied rows launch first. The epilogue
+//      writes each thread's accumulator straight to o (each warp store
+//      fills 32-byte sectors) and 0 at rows past rows[e].
+//  * gmm_large, C > 32 otherwise (bf16, which no main path launches,
+//    and shapes or pointers TMA cannot take): a register-tiled SGEMM on
+//    the CUDA cores. A block of 128 threads owns a 64 x 128 output tile,
+//    each thread an 8 x 8 register tile; w streams through a 3-stage
+//    cp.async ring of 16-deep chunks, x is staged transposed. Row tiles
+//    at or past rows[e] are zero-filled without any load.
 //
-// The products are plain IEEE fp32 FMAs on the CUDA cores. Tensor cores
-// are left to later work: the main path is fp32 and must meet 2e-5
-// against the plain version, which TF32 cannot, and a 3xTF32 split would
-// run faster than the fp32 bound the measurements state, which would
-// first have to be restated. The vector copies need d and f to be
-// multiples of 16 bytes' worth of elements and 16-byte aligned
-// pointers; other shapes take scalar loads through the same tiles.
+// The vector copies of gmm_small and gmm_large need d and f to be
+// multiples of 16 bytes' worth of elements and 16-byte aligned pointers;
+// other shapes take scalar loads through the same tiles.
+// (tools/k2_variants.py times other tile choices.)
+#include <cuda.h>  // CUtensorMap and its enums; the driver call is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -292,7 +334,8 @@ __global__ void __launch_bounds__(S_THREADS)
 }
 
 // ---------------------------------------------------------------------
-// C > SMALL_C: register-tiled fp32 SGEMM.
+// C > SMALL_C where the tensor-core variant cannot run: register-tiled
+// SGEMM on the CUDA cores.
 constexpr int L_BM = 64;        // rows of C per block
 constexpr int L_BN = 128;       // columns of f per block
 constexpr int L_BK = 16;        // depth of d per staged chunk
@@ -438,6 +481,441 @@ __global__ void __launch_bounds__(L_THREADS, L_MIN_BLOCKS)
   }
 }
 
+// ---------------------------------------------------------------------
+// C > SMALL_C, fp32, d and f multiples of 4, 16-byte aligned pointers:
+// 3xTF32 on wgmma with the operands swapped (o^T = w^T x^T), TMA copies
+// into a ring of stages, a producer warpgroup and W_CONSUMERS consumer
+// warpgroups. See the note at the top.
+constexpr int W_CONSUMERS = 2;   // consumer warpgroups, 64 columns of f each
+constexpr int W_BM = 64 * W_CONSUMERS;  // columns of f per block (wgmma M)
+constexpr int W_BN = 32;         // rows of C per n-tile (wgmma N: 32 or 64)
+constexpr int W_NT = 6;          // n-tiles per block: W_NT * W_BN rows of C
+constexpr int W_BK = 32;         // depth per stage: one 128-byte swizzle row
+constexpr int W_STAGES = 3;      // stages in the ring
+constexpr int W_CHUNK = 4;       // 8-deep steps summed from zero (divides 4)
+// The producer warpgroup gives registers to the consumers (setmaxnreg).
+constexpr int W_THREADS = 128 * (W_CONSUMERS + 1);
+constexpr int W_PRODUCER_REGS = 40;
+constexpr int W_CONSUMER_REGS = 232;
+constexpr int W_BOX = 32;        // columns of f per TMA box of w (128 bytes)
+constexpr int W_TILE_W = W_BK * W_BM;         // floats of w in a stage
+constexpr int W_TILE_X = W_NT * W_BN * W_BK;  // floats of x (and x_small)
+constexpr int W_STAGE = W_TILE_W + 2 * W_TILE_X;
+constexpr int W_SMEM = W_STAGES * W_STAGE * 4 + 3 * W_STAGES * 8 + 1024;
+static_assert(W_BK == 32 && W_BM % W_BOX == 0 && (W_BK / 8) % W_CHUNK == 0 &&
+                  (W_BN == 32 || W_BN == 64) && W_BN * W_BK % 1024 == 0,
+              "128-byte swizzled tiles of 1 KB multiples; wgmma N 32 or 64");
+static_assert(W_SMEM <= 232448, "the ring fits in an SM's shared memory");
+static_assert(128 * (W_PRODUCER_REGS + W_CONSUMERS * W_CONSUMER_REGS) <=
+                  65536 && W_CONSUMER_REGS % 8 == 0,
+              "the warpgroups' registers fit in the SM's 64 K");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// Spins until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// A box of a 3-D tensor map -> shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+// wgmma's descriptor of a K-major tile with the 128-byte swizzle: rows of
+// 128 bytes, 8-row groups 1024 bytes apart, the tile 1024-byte aligned.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of wgmma are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+using Int = std::integral_constant<int, N>;
+// f(Int<n>{}) for the runtime n in [1, N]: code with n fixed at compile
+// time, so that ptxas sees how many wgmma groups are in flight.
+template <int N, typename Fn>
+__device__ __forceinline__ void with_const(int n, Fn&& f) {
+  if constexpr (N > 1) {
+    if (n < N) {
+      with_const<N - 1>(n, f);
+      return;
+    }
+  }
+  f(Int<N>{});
+}
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (m64 x nN, fp32) = (scale_d ? d : 0) + a b for a 64 x 8 tf32 A in
+// registers (the m16n8k8 layout, 16 rows a warp) and an 8 x N K-major
+// tf32 B in shared memory; N = 2 ND, 32 or 64.
+template <int ND>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[ND],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  static_assert(ND == 16 || ND == 32, "wgmma N 32 or 64");
+  if constexpr (ND == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+}
+
+// x rounded to tf32 (10-bit mantissa, to nearest, ties away from zero),
+// on the bits.
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = big + small + O(2^-22 x), both tf32: big is x rounded, small the
+// rest, rounded too, so the tensor cores read both exactly.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_bits(x);
+  small = tf32_bits(x - __uint_as_float(big));
+}
+// x's small part for a big part the tensor cores take from x itself (its
+// top 19 bits): x - trunc(x), rounded to tf32.
+__device__ __forceinline__ float tf32_rest(float x) {
+  return __uint_as_float(
+      tf32_bits(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u)));
+}
+
+__global__ void __launch_bounds__(W_THREADS, 1)
+    gmm_wgmma(const __grid_constant__ CUtensorMap x_map,
+              const __grid_constant__ CUtensorMap w_map, float* __restrict__ o,
+              const int* __restrict__ rows, int C, int D, int F) {
+  extern __shared__ unsigned char wsmem[];
+  // 1024-byte alignment for the swizzled tiles: [stage][w | x | x_small]
+  float* ring = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(wsmem) + 1023) & ~uintptr_t(1023));
+  // full: the stage's copies landed; ready: its x_small is written;
+  // empty: both consumers are done with it
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + W_STAGES * W_STAGE);
+  uint64_t* ready = full + W_STAGES;
+  uint64_t* empty = ready + W_STAGES;
+
+  // Blocks launch in order of blockIdx.z, and with rows an expert's
+  // blocks take time in proportion to its occupied n-tiles: block z
+  // takes the expert with the z-th most occupied rows (ties by index),
+  // so the longest run first and the shortest fill the last wave.
+  __shared__ int expert;
+  if (rows != nullptr) {
+    for (int i = threadIdx.x; i < (int)gridDim.z; i += blockDim.x) {
+      const int ni = occupied(rows, i, C);
+      int rank = 0;
+      for (int j = 0; j < (int)gridDim.z; ++j) {
+        const int nj = occupied(rows, j, C);
+        rank += nj > ni || (nj == ni && j < i);
+      }
+      if (rank == (int)blockIdx.z) expert = i;
+    }
+    __syncthreads();
+  }
+  const int e = rows != nullptr ? expert : blockIdx.z;
+  const int f0 = blockIdx.x * W_BM, c0 = blockIdx.y * (W_NT * W_BN);
+  const int n = occupied(rows, e, C);
+  float* oe = o + (int64_t)e * C * F;
+  if (c0 >= n) {  // no occupied row: no load at all
+    zero_rows(oe, c0, min(c0 + W_NT * W_BN, C), f0, W_BM, F);
+    return;
+  }
+  // n-tiles holding an occupied row; the rest are neither loaded nor
+  // computed
+  const int live = min(W_NT, (n - c0 + W_BN - 1) / W_BN);
+  const int nk = (D + W_BK - 1) / W_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], 96);
+      mbar_init(&empty[s], W_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * W_CONSUMERS) {
+    // The producer warpgroup: its first thread keeps the ring full, its
+    // other three warps write each stage's x_small (tf32_rest) in x's
+    // swizzled layout.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        W_PRODUCER_REGS));
+    const int pt = threadIdx.x - 128 * W_CONSUMERS;
+    if (pt == 0) {
+      const uint32_t bytes = 4u * (W_TILE_W + live * W_BN * W_BK);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % W_STAGES;
+        mbar_wait(&empty[s], ((kt / W_STAGES) & 1) ^ 1);
+        float* st = ring + s * W_STAGE;
+        mbar_expect_tx(&full[s], bytes);
+        for (int b = 0; b < W_BM / W_BOX; ++b)
+          tma_load(st + b * W_BK * W_BOX, &w_map, &full[s], f0 + b * W_BOX,
+                   kt * W_BK, e);
+        for (int t = 0; t < live; ++t)
+          tma_load(st + W_TILE_W + t * W_BN * W_BK, &x_map, &full[s],
+                   kt * W_BK, c0 + t * W_BN, e);
+      }
+    } else if (pt >= 32) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % W_STAGES;
+        mbar_wait(&full[s], (kt / W_STAGES) & 1);
+        const float4* xt =
+            reinterpret_cast<const float4*>(ring + s * W_STAGE + W_TILE_W);
+        float4* xs = const_cast<float4*>(xt) + W_TILE_X / 4;
+        for (int i = pt - 32; i < live * W_BN * W_BK / 4; i += 96) {
+          const float4 v = xt[i];
+          xs[i] = make_float4(tf32_rest(v.x), tf32_rest(v.y),
+                              tf32_rest(v.z), tf32_rest(v.w));
+        }
+        // visible to the consumers' wgmma (the async proxy)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&ready[s]);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      W_CONSUMER_REGS));
+
+  // A consumer warpgroup: columns [f0 + wg * 64, + 64) of f. Its warp wi
+  // holds A rows (f) wi * 16 + g and + 8 (g = lane / 4) and depths
+  // q = lane % 4 and q + 4 of each 8-deep step.
+  const int wg = threadIdx.x / 128, wi = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int fl = wg * 64 + wi * 16 + g;  // f within the block
+  const int box = fl / W_BOX, fb = fl % W_BOX;  // fb + 8 stays in the box
+  constexpr int ND = W_BN / 2;  // accumulator floats a thread per n-tile
+  // acc: the fp32 sums; part: two chunk sums on the tensor cores, so that
+  // one n-tile's chunk runs while the other's is added to acc
+  float acc[W_NT][ND], part[2][ND];
+#pragma unroll
+  for (int t = 0; t < W_NT; ++t)
+#pragma unroll
+    for (int i = 0; i < ND; ++i) acc[t][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) part[0][i] = part[1][i] = 0.f;
+
+  // The stage's A = w^T fragments, split. Element (f, k) of a stage lies
+  // at row k of its box, in 16-byte chunk (f / 4) ^ (k % 8) of the row
+  // (the 128-byte swizzle).
+  uint32_t a_big[W_BK / 8][4], a_small[W_BK / 8][4];
+  // The stages over LIVE n-tiles, fixed at compile time so that ptxas
+  // sees how many wgmma groups are in flight (else it serializes them):
+  // for each chunk, n-tile t's products are issued into part[t % 2],
+  // then n-tile t - 1's, complete, are added to acc.
+  with_const<W_NT>(live, [&](auto n_live) {
+    constexpr int LIVE = decltype(n_live)::value;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % W_STAGES;
+      mbar_wait(&full[s], (kt / W_STAGES) & 1);
+      mbar_wait(&ready[s], (kt / W_STAGES) & 1);
+      const float* wt = ring + s * W_STAGE + box * W_BK * W_BOX;
+      const float* xt = ring + s * W_STAGE + W_TILE_W;
+      const float* xs = xt + W_TILE_X;
+#pragma unroll
+      for (int j = 0; j < W_BK / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int k = 8 * j + q + (r >= 2 ? 4 : 0);
+          const int f = fb + (r & 1 ? 8 : 0);
+          split_tf32(wt[k * W_BOX + ((f / 4) ^ (k % 8)) * 4 + f % 4],
+                     a_big[j][r], a_small[j][r]);
+        }
+#pragma unroll
+      for (int c = 0; c < W_BK / 8; c += W_CHUNK) {
+#pragma unroll
+        for (int t = 0; t <= LIVE; ++t) {
+          if (t < LIVE) {
+            float(&p)[ND] = part[t % 2];
+            const uint64_t db = sw128_desc(xt + t * W_BN * W_BK);
+            const uint64_t ds = sw128_desc(xs + t * W_BN * W_BK);
+            keep(p);
+            wgmma_fence();
+#pragma unroll
+            for (int j = c; j < c + W_CHUNK; ++j) {
+              // + 32 bytes of depth a step, inside the swizzled row
+              wgmma_tf32(p, a_small[j], db + 2 * j, j > c);
+              wgmma_tf32(p, a_big[j], ds + 2 * j, 1);
+              wgmma_tf32(p, a_big[j], db + 2 * j, 1);
+            }
+            wgmma_commit();
+          }
+          if (t >= 1) {
+            if (t < LIVE)
+              wgmma_wait<1>();
+            else
+              wgmma_wait<0>();
+            float(&p)[ND] = part[(t - 1) % 2];
+            keep(p);
+#pragma unroll
+            for (int i = 0; i < ND; ++i) acc[t - 1][i] += p[i];
+          }
+        }
+      }
+      // this warpgroup is done with the stage
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
+    }
+  });
+
+  // acc[t][4 j + 2 h + b] is o^T at f = fl + 8 h, c = c0 + t W_BN + 8 j +
+  // 2 q + b. Rows of c at or past n are written 0, never the accumulator.
+#pragma unroll
+  for (int t = 0; t < W_NT; ++t)
+#pragma unroll
+    for (int j = 0; j < W_BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int c = c0 + t * W_BN + 8 * j + 2 * q + b;
+          const int f = f0 + fl + 8 * h;
+          if (c < C && f < F)
+            oe[(int64_t)c * F + f] = c < n ? acc[t][4 * j + 2 * h + b] : 0.f;
+        }
+}
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime so that
+// the library links against no driver library.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a contiguous fp32 (n2, n1, n0) array, n0 innermost,
+// in boxes of (1, b1, b0) with the 128-byte swizzle; boxes past an edge
+// read 0.
+bool tensor_map(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
+                uint64_t n2, uint32_t b0, uint32_t b1) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {n0, n1, n2};
+  const cuuint64_t strides[2] = {n0 * 4, n0 * n1 * 4};  // bytes, dims 1, 2
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_wgmma(const void* x, const void* w, void* o,
+                         const int* rows, int E, int C, int D, int F,
+                         cudaStream_t stream) {
+  CUtensorMap x_map, w_map;
+  if (!tensor_map(&x_map, x, D, C, E, W_BK, W_BN) ||
+      !tensor_map(&w_map, w, F, D, E, W_BOX, W_BK))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gmm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((F + W_BM - 1) / W_BM),
+                  (unsigned)((C + W_NT * W_BN - 1) / (W_NT * W_BN)),
+                  (unsigned)E);
+  gmm_wgmma<<<grid, W_THREADS, W_SMEM, stream>>>(
+      x_map, w_map, static_cast<float*>(o), rows, C, D, F);
+  return cudaGetLastError();
+}
+
+enum Route { ROUTE_SMALL = 0, ROUTE_WGMMA = 1, ROUTE_LARGE = 2 };
+
+Route route(const void* x, const void* w, const void* o, int C, int D, int F,
+            bool bf16) {
+  if (C <= SMALL_C) return ROUTE_SMALL;
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(w) |
+                        reinterpret_cast<uintptr_t>(o)) % 16 == 0;
+  return !bf16 && D % 4 == 0 && F % 4 == 0 && aligned ? ROUTE_WGMMA
+                                                     : ROUTE_LARGE;
+}
+
 template <typename T, bool VEC>
 cudaError_t launch_variant(const void* x, const void* w, void* o,
                            const int* rows, int E, int C, int D, int F,
@@ -491,9 +969,19 @@ extern "C" int repro_grouped_matmul(const void* x, const void* w, void* o,
       (C + L_BM - 1) / L_BM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route(x, w, o, C, D, F, is_bf16) == ROUTE_WGMMA)
+    return (int)launch_wgmma(x, w, o, rows, E, C, D, F, s);
   return (int)(is_bf16
                    ? launch<__nv_bfloat16>(x, w, o, rows, E, C, D, F, s)
                    : launch<float>(x, w, o, rows, E, C, D, F, s));
+}
+
+// The variant repro_grouped_matmul launches for these arguments: 0
+// gmm_small, 1 gmm_wgmma, 2 gmm_large.
+extern "C" int repro_grouped_matmul_route(const void* x, const void* w,
+                                          const void* o, int C, int D, int F,
+                                          int is_bf16) {
+  return (int)route(x, w, o, C, D, F, is_bf16);
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

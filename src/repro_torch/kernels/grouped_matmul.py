@@ -18,6 +18,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 # Kernel launches in this process; callers reset it to 0 to count a run.
 launches = 0
+# The same launches by the kernel variant that ran (see the note in
+# csrc/grouped_matmul.cu): gmm_small (C <= 32), gmm_wgmma (C > 32, fp32,
+# 3xTF32 on the tensor cores), gmm_large (C > 32 otherwise, on the CUDA
+# cores); callers reset them to 0 with ``launches``.
+ROUTES = ("gmm_small", "gmm_wgmma", "gmm_large")
+route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor,
@@ -44,9 +50,10 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     accumulation. Ragged C, d and f are masked in the kernel.
 
     ``rows``, an (E,) int32 tensor on x's device, says that row r of
-    expert e is zero for r >= rows[e]: those output rows are 0, and the
-    kernel reads neither x nor w for them (none of w[e] when rows[e] is
-    0). It is read on the device, so passing it does not synchronise."""
+    expert e is zero for r >= rows[e]: those output rows are 0 and
+    depend neither on x's rows there nor on w (the kernel reads none of
+    w[e] when rows[e] is 0). It is read on the device, so passing it does
+    not synchronise."""
     _check_shapes(x, w, rows)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return grouped_matmul_ref(x, w, rows)
@@ -75,15 +82,18 @@ def _launch(x: torch.Tensor, w: torch.Tensor,
                          f"E={e} C={c} d={d} f={f}")
     lib = _build.load("grouped_matmul")
     o = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.repro_grouped_matmul(
             x.data_ptr(), w.data_ptr(), o.data_ptr(),
-            None if rows is None else rows.data_ptr(), e, c, d, f,
-            int(x.dtype == torch.bfloat16), stream)
+            None if rows is None else rows.data_ptr(), e, c, d, f, bf16,
+            stream)
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"grouped_matmul kernel launch failed: "
                            f"cudaError {rc} ({msg})")
     launches += 1
+    route_launches[ROUTES[lib.repro_grouped_matmul_route(
+        x.data_ptr(), w.data_ptr(), o.data_ptr(), c, d, f, bf16)]] += 1
     return o

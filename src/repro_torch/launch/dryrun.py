@@ -63,6 +63,7 @@ from repro_torch.distributed.sharding import (
     cache_specs,
     _map_with_path,
     carried_specs,
+    codebooks_split,
     kv_heads_split,
     param_specs,
     placements,
@@ -89,15 +90,16 @@ MESHES = {"single": (256, False), "multi": (512, True)}
 def cell_mesh(cfg: ModelConfig, cell: ShapeCell, mesh):
     """The mesh this cell's DTensors live on (``dtensor_mesh``): `model`
     split over an mLSTM's heads where each head spans several devices of
-    it, and over a serving cell's kv heads where each spans several
-    (``kv_heads_split``: the cache holds them there); `pod` and `data`
-    kept apart where the cell's cache specs name `data` alone (a batch-1
-    KV cache sharded on its sequence)."""
+    it, over a serving cell's kv heads where each spans several
+    (``kv_heads_split``: the cache holds them there), and over an audio
+    serving cell's codebooks (``codebooks_split``: the logits hold them
+    there); `pod` and `data` kept apart where the cell's cache specs name
+    `data` alone (a batch-1 KV cache sharded on its sequence)."""
     M = mesh.size(mesh.mesh_dim_names.index("model"))
     heads = cfg.n_heads if (cfg.xlstm_pattern and M > cfg.n_heads
                             and M % cfg.n_heads == 0) else 0
     if cell.kind != "train" and stack_kind(cfg) == "transformer":
-        heads = kv_heads_split(cfg, M)
+        heads = kv_heads_split(cfg, M) or codebooks_split(cfg, M)
     data_alone = False
     if cell.kind != "train":
         cache = build_model(cfg).init_cache(cell.global_batch, cell.seq_len,

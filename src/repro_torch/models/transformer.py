@@ -19,8 +19,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (embed, pin_residual, reshape,
-                                              residual_add, unembed)
+from repro_torch.distributed.sharding import (embed, pin_residual,
+                                              residual_add, split_codebooks,
+                                              unembed)
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoE, moe_apply
 
@@ -104,8 +105,7 @@ def _unembed(p: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = p.embed.t() if cfg.tie_embeddings else p.lm_head
     logits = unembed(x, w.to(x.dtype))
     if cfg.family == "audio":
-        B, S = x.shape[0], x.shape[1]
-        logits = reshape(logits, B, S, cfg.n_codebooks, cfg.vocab_padded)
+        logits = split_codebooks(logits, cfg.n_codebooks)
     if cfg.vocab_padded != cfg.vocab_size:
         # padded slots never win softmax/sampling
         logits[..., cfg.vocab_size:] = -1e30

@@ -626,8 +626,8 @@ def test_audio_codebooks_reduce_each_lookup(kind, no_kernel):
     partial lookups onto the sequence and gathered it back, torch 2.11
     all-reduced each: the rows' collective bytes moved 1.4-3.4% with the
     release. No reduce-scatter is left; a decode step all-reduces two
-    partial sums a layer and the four lookups (its one gather is the
-    logits', viewed as (B, S, K, V), on both releases)."""
+    partial sums a layer and the four lookups, and gathers nothing (the
+    logits keep the codebooks and the vocab split 4 x 4 over `model`)."""
     cfg = dryrun.ARCHS["musicgen-large"].replace(n_layers=2, d_model=256,
                                                 n_heads=16, n_kv_heads=16,
                                                 d_head=16, d_ff=512)
@@ -641,7 +641,54 @@ def test_audio_codebooks_reduce_each_lookup(kind, no_kernel):
     assert "reduce-scatter_count" not in colls
     if kind == "decode":
         assert colls["all-reduce_count"] == 2 * cfg.n_layers + cfg.n_codebooks
-        assert colls["all-gather_count"] == 1
+        assert "all-gather_count" not in colls
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_audio_serving_logits_stay_split_over_codebooks(kind, monkeypatch,
+                                                        no_kernel):
+    """`musicgen-large` cut to 2 layers, a serving cell on the fake 16x16
+    mesh: the (B, S, K*V) unembedding, vocab-parallel over `model`, is
+    viewed as (B, S, K, V) with no collective, its 4 codebooks over
+    "model_h" and its vocab over "model_d" of a `model` split 4 x 4, and
+    the step returns them so: (B / 16, S, 1, V / 4) a device, the layout
+    of the reference's ``bf16[2,32768,1,512]`` at full width. The cell's
+    collectives are the layers' and the lookups' all-reduces, no
+    all-gather (before: the logits gathered to (B / 16, S, K*V))."""
+    from repro_torch.models import registry
+
+    cfg = dryrun.ARCHS["musicgen-large"].replace(n_layers=2, d_model=256,
+                                                n_heads=16, n_kv_heads=16,
+                                                d_head=16, d_ff=512)
+    cell = ShapeCell("s", kind, 64, 64)
+    seen, logs = [], []
+    name = kind if kind == "prefill" else "decode_step"
+    real = getattr(registry.Model, name)
+
+    def step(self, *a):
+        lg, cache = real(self, *a)
+        seen.append((tuple(lg.to_local().shape), lg.device_mesh.mesh_dim_names,
+                     tuple(lg.placements)))
+        return lg, cache
+
+    def counter():
+        logs.append(_CollectiveLog())
+        return logs[-1]
+
+    monkeypatch.setattr(registry.Model, name, step)
+    monkeypatch.setattr(dryrun, "OpCounter", counter)
+    with process_group("fake", 256):
+        mesh = make_production_mesh()
+        row = dryrun.analyze_cell("musicgen-large", cfg, cell, mesh, "single")
+    assert row["status"] == "ok" and no_kernel == []
+    S = cell.seq_len if kind == "prefill" else 1
+    K, V = cfg.n_codebooks, cfg.vocab_padded
+    assert seen == [((cell.global_batch // 16, S, 1, V // 4),
+                     ("data", "model_h", "model_d"),
+                     (Shard(0), Shard(2), Shard(3)))]
+    kinds = {k for k, _, _ in logs[0].log}
+    assert kinds == {"all-reduce"}
+    assert all(shape[-1] != K * V for _, shape, _ in logs[0].log)
 
 
 # ---- the serving steps' logits, kv heads that span devices ----

@@ -300,6 +300,76 @@ def test_grouped_matmul_rows_reads_nothing_past_them(hopper, shape):
     torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
 
 
+PREFILL_SHAPES = [(60, 192, 2048, 1408), (60, 192, 1408, 2048)]
+
+
+def _routes_of(fn):
+    """(fn's result, the K2 variants it launched, by name)."""
+    before = dict(gm.route_launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in gm.route_launches.items()
+                 if n != before[k]}
+
+
+@pytest.mark.parametrize("case", ["dense", "ragged", "full", "zero", "x8",
+                                  "nan"])
+@pytest.mark.parametrize("shape", PREFILL_SHAPES)
+def test_grouped_matmul_prefill_runs_3xtf32_wgmma(hopper, shape, case):
+    """The moe prefill's two K2 shapes at full width go through the
+    tensor-core variant (gmm_wgmma) and hold 2e-5 against the plain
+    version: dense, with rows "ragged", "full" and "zero", with x scaled
+    by 8, and with NaN in x past rows[e] and in the weights of experts
+    with no row. The plain version computed in float64 holds them at 2e-5
+    too; with x scaled by 8 it is the one held to (the fp32 plain version
+    is itself up to 8.5e-5 off float64 there, the kernel 2.4e-5)."""
+    E, C, d, f = shape
+    x, w = _gmm_inputs(shape, torch.float32, seed=22)
+    rows = None
+    if case in ("ragged", "full", "zero"):
+        rows = _rows(case, E, C, seed=22)
+    elif case == "nan":
+        rows = _rows("ragged", E, C, seed=23)
+    if case == "x8":
+        x = x * 8
+    live = torch.ones(E, C, dtype=torch.bool, device="cuda")
+    if rows is not None:
+        live = torch.arange(C, device="cuda") < rows[:, None]
+        x = torch.where(live[..., None], x, 0)
+    want = grouped_matmul_ref(x, w, rows)
+    exact = torch.where(live[..., None], torch.einsum(
+        "ecd,edf->ecf", x.double(), w.double()), 0)
+    if case == "nan":
+        x = torch.where(live[..., None], x, float("nan"))
+        w[rows == 0] = float("nan")
+    out, routes = _routes_of(lambda: gm.grouped_matmul(x, w, rows))
+    assert routes == {"gmm_wgmma": 1}
+    assert bool(torch.isfinite(out).all()) and not out[~live].any()
+    torch.testing.assert_close(out.double(), exact, rtol=2e-5, atol=2e-5)
+    if case != "x8":
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", ["f_off", "d_off", "bf16", "unaligned"])
+def test_grouped_matmul_takes_cuda_cores_where_tma_cannot(hopper, case):
+    """What TMA cannot copy takes the CUDA-core variant (gmm_large), right
+    all the same: f or d not a multiple of 4 fp32 elements, an x whose
+    pointer is 4 bytes past 16-byte alignment; and bf16, which no main
+    path launches."""
+    shape, dtype = {"f_off": ((6, 100, 300, 130), torch.float32),
+                    "d_off": ((6, 100, 302, 128), torch.float32),
+                    "bf16": ((60, 192, 2048, 1408), torch.bfloat16),
+                    "unaligned": ((4, 64, 256, 128), torch.float32)}[case]
+    x, w = _gmm_inputs(shape, dtype)
+    if case == "unaligned":
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(shape[:3])
+    out, routes = _routes_of(lambda: gm.grouped_matmul(x, w))
+    assert routes == {"gmm_large": 1}
+    tol = _tol(dtype)
+    torch.testing.assert_close(out.float(), grouped_matmul_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
 def test_grouped_matmul_rejects_bad_rows(hopper):
     x, w = _gmm_inputs((4, 16, 32, 8), torch.float32)
     rows = torch.full((4,), 16, dtype=torch.int32, device="cuda")

@@ -8,6 +8,7 @@ token drops; and the moe smoke engine's logits and greedy tokens. The
 CUDA kernel itself is tested on the card in ``test_torch_gpu.py``.
 """
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -121,6 +122,24 @@ def test_build_command_covers_grouped_matmul(monkeypatch, tmp_path):
     assert _build.library_path("grouped_matmul").parent == _build.BUILD_DIR
 
 
+def test_grouped_matmul_variant_names_follow_the_source():
+    """``route_launches`` names the kernel variants in the order of the
+    C enum that ``repro_grouped_matmul_route`` returns, and the CPU path
+    counts none of them."""
+    src = (_build.CSRC / "grouped_matmul.cu").read_text()
+    enum = re.search(r"enum Route \{([^}]*)\}", src)[1]
+    values = {name.strip(): int(v) for name, v in
+              (item.split("=") for item in enum.split(","))}
+    assert values == {"ROUTE_SMALL": 0, "ROUTE_WGMMA": 1, "ROUTE_LARGE": 2}
+    assert gm.ROUTES == ("gmm_small", "gmm_wgmma", "gmm_large")
+    assert all(f" {name}(" in src for name in gm.ROUTES)   # the kernels
+    assert "repro_grouped_matmul_route" in _build.SIGNATURES["grouped_matmul"]
+    _, (x, w) = _gmm_inputs((2, 64, 16, 8), "float32")
+    before = dict(gm.route_launches)
+    tops.grouped_matmul(x, w)
+    assert gm.route_launches == before
+
+
 def _rows_case(shape, dtype, seed=0):
     """K2 inputs whose rows past rows[e] are zero, with rows[0] = 0 and
     rows[-1] = C (and the rest drawn from [0, C]); numpy rows and both
@@ -194,6 +213,66 @@ def test_grouped_matmul_rejects_bad_rows(bad):
     with pytest.raises(err, match="rows"):
         tops.grouped_matmul(x, w, rows)
     assert gm.launches == before
+
+
+def _tf32_round(x):
+    """x rounded to tf32 (10-bit mantissa, to nearest, ties away from
+    zero, on the bits), as the kernel splits w."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """x's top 19 bits, all a tensor core reads of a tf32 operand."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _wgmma_chunk_depth() -> int:
+    """The depth the gmm_wgmma kernel sums from zero on the tensor cores:
+    its W_CHUNK 8-deep steps, read from the source."""
+    src = (_build.CSRC / "grouped_matmul.cu").read_text()
+    return 8 * int(re.search(r"constexpr int W_CHUNK = (\d+);", src)[1])
+
+
+def _gmm_3xtf32(x, w, chunk):
+    """x @ w per expert as the gmm_wgmma kernel computes it in fp32: w
+    split into big = tf32(w), rounded, and small = tf32(w - big); x into
+    big = x as the tensor cores read it (truncated to tf32) and small =
+    tf32(x - big), both small parts rounded. small_x*big_w +
+    big_x*small_w + big_x*big_w is summed over each ``chunk``-deep slice
+    of d from zero, then added to the fp32 accumulator."""
+    wb = _tf32_round(w)
+    ws = _tf32_round(w - wb)
+    xb = _tf32_trunc(x)
+    xs = _tf32_round(x - xb)
+    out = torch.zeros(x.shape[:-1] + w.shape[-1:])
+    for k0 in range(0, x.shape[-1], chunk):
+        c = slice(k0, k0 + chunk)
+        out = out + (xs[..., c] @ wb[:, c] + xb[..., c] @ ws[:, c]
+                     + xb[..., c] @ wb[:, c])
+    return out
+
+
+@pytest.mark.parametrize("x_scale", [1, 8])
+@pytest.mark.parametrize("shape", [(2, 64, 2048, 256), (2, 64, 1408, 256)])
+def test_3xtf32_wgmma_scheme_meets_fp32_tolerance(shape, x_scale):
+    """The prefill kernel's fp32 route (3xTF32 on wgmma), emulated in
+    plain torch with its split and chunk depth at cuts of the two
+    qwen2-moe-a2.7b prefill GEMMs at full depth (d = 2048 for gate and
+    up, 1408 for down) with ragged rows, holds 2e-5 against the
+    reference package's oracle and its Pallas kernel (interpret mode),
+    with x at the moe path's scale and scaled by 8. Plain TF32 misses by
+    more than ten times the tolerance."""
+    rows, ((jx, jw), (tx, tw)) = _rows_case(shape, "float32", seed=22)
+    jx, tx = jx * x_scale, tx * x_scale
+    want_ref = _np(jref.grouped_matmul_ref(jx, jw))
+    want_kernel = _np(jops.grouped_matmul(jx, jw))
+    got = _gmm_3xtf32(tx, tw, _wgmma_chunk_depth())
+    got = torch.where(torch.arange(shape[1])[:, None] < torch.from_numpy(
+        rows)[:, None, None], got, 0.0)
+    np.testing.assert_allclose(_np(got), want_ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_np(got), want_kernel, rtol=2e-5, atol=2e-5)
+    tf32_only = _tf32_round(tx) @ _tf32_round(tw)
+    assert np.abs(_np(tf32_only) - want_ref).max() > 10 * 2e-5
 
 
 # ----------------------------------------------------------------------

@@ -3,23 +3,32 @@
 
 Run from the repository root on a machine with the card and ``nvcc``:
 
-    python3 tools/k2_variants.py
+    python3 tools/k2_variants.py [--only NAME ...] [--also LABEL=PATH ...]
 
 A variant is ``src/repro_torch/kernels/csrc/grouped_matmul.cu`` with
-some of its ``constexpr int NAME = value;`` tile constants replaced.
-Every variant is built (one ``nvcc`` each, all at once, into
-``build/grouped_matmul_variants/``), launched through the port's own
-wrapper, held against the plain version at 2e-5, and timed with CUDA
-events at the qwen2-moe-a2.7b serving shapes, densely and with ``rows``
-like the moe path's, in two rounds in opposite orders; ``torch.bmm`` is
-timed beside the dense cases. Prints the card's name and power limit,
-``ptxas`` registers and spills per variant, and one JSON line per case.
+some of its ``constexpr int NAME = value;`` tile constants replaced: the
+prefill variant's (``gmm_wgmma``) n-tile, chunk depth and stages, the
+decode variant's (``gmm_small``) tiles. Every variant is built (one
+``nvcc`` each, all at once, into ``build/grouped_matmul_variants/``),
+launched through the port's own wrapper, held against the plain version
+at 2e-5 (its distance to the product computed in float64 printed
+beside), and timed with CUDA events at the qwen2-moe-a2.7b serving
+shapes, densely and with ``rows`` like the moe path's, in two rounds in
+opposite orders; ``torch.bmm`` is timed beside the dense cases. The
+prefill shapes also run with x scaled by 8, held to the product in
+float64 at 2e-5. ``--only`` keeps some of the variants below, and
+``--also`` adds another source with the same C interface as a variant
+of its own (an earlier commit's kernel unpacked with ``git archive``).
+Prints the card's name and power limit, ``ptxas`` registers, spills and
+wgmma advisories per variant, and one JSON line per case.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import sys
+from pathlib import Path
 
 import torch
 
@@ -29,15 +38,13 @@ from repro_torch.kernels.ref import grouped_matmul_ref
 
 VARIANTS = {
     "source": {},
-    "S_BN=64,S_KC=32,S_STAGES=3": {"S_BN": 64, "S_KC": 32, "S_STAGES": 3},
-    "S_KC=32,S_STAGES=3": {"S_KC": 32, "S_STAGES": 3},
+    "W_BN=64,W_NT=3": {"W_BN": 64, "W_NT": 3},
+    "W_CHUNK=2": {"W_CHUNK": 2},
+    "W_CHUNK=1": {"W_CHUNK": 1},
+    "W_STAGES=2": {"W_STAGES": 2},
+    "W_CONSUMER_REGS=240,W_PRODUCER_REGS=24": {"W_CONSUMER_REGS": 240,
+                                               "W_PRODUCER_REGS": 24},
     "S_STAGES=3": {"S_STAGES": 3},
-    "S_BN=64,S_KC=64": {"S_BN": 64},
-    "L_BM=32": {"L_BM": 32},
-    "L_STAGES=4": {"L_STAGES": 4},
-    "L_MIN_BLOCKS=2": {"L_MIN_BLOCKS": 2},
-    "L_WARP_TX=8": {"L_WARP_TX": 8},
-    "L_BK=32": {"L_BK": 32},
 }
 
 
@@ -61,25 +68,45 @@ def main() -> int:
         print("k2_variants: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", action="append", choices=sorted(VARIANTS),
+                    help="a variant to build (default: all)")
+    ap.add_argument("--also", action="append", default=[],
+                    metavar="LABEL=PATH",
+                    help="another grouped_matmul.cu to time as a variant")
+    args = ap.parse_args()
     print(kv.card())
-    libs = kv.build("grouped_matmul",
-                    {name: (None, c) for name, c in VARIANTS.items()})
+    variants = {name: (None, c) for name, c in VARIANTS.items()
+                if not args.only or name in args.only}
+    for spec in args.also:
+        label, path = spec.split("=", 1)
+        variants[label] = (Path(path), {})
+    libs = kv.build("grouped_matmul", variants)
     g = torch.Generator().manual_seed(0)
-    cases = [((60, 192, 2048, 1408), "dense"), ((60, 192, 1408, 2048), "dense"),
-             ((60, 192, 2048, 1408), "prefill"),
-             ((60, 192, 1408, 2048), "prefill"),
-             ((60, 32, 2048, 1408), "dense"), ((60, 32, 1408, 2048), "dense"),
-             ((60, 32, 2048, 1408), "decode"), ((60, 32, 1408, 2048), "decode")]
-    for (E, C, d, f), kind in cases:
-        x = torch.randn((E, C, d), device="cuda")
+    cases = [((60, 192, 2048, 1408), "dense", 1),
+             ((60, 192, 1408, 2048), "dense", 1),
+             ((60, 192, 2048, 1408), "prefill", 1),
+             ((60, 192, 1408, 2048), "prefill", 1),
+             ((60, 192, 2048, 1408), "dense", 8),
+             ((60, 192, 1408, 2048), "prefill", 8),
+             ((60, 32, 2048, 1408), "dense", 1),
+             ((60, 32, 1408, 2048), "dense", 1),
+             ((60, 32, 2048, 1408), "decode", 1),
+             ((60, 32, 1408, 2048), "decode", 1)]
+    for (E, C, d, f), kind, scale in cases:
+        x = torch.randn((E, C, d), device="cuda") * scale
         w = torch.randn((E, d, f), device="cuda") / math.sqrt(d)
         rows = case_rows(kind, E, C, g)
         if rows is not None:
             live = torch.arange(C, device="cuda") < rows[:, None]
             x = torch.where(live[..., None], x, 0)
         want = grouped_matmul_ref(x, w, rows)
+        exact = torch.einsum("ecd,edf->ecf", x.double(), w.double())
+        if rows is not None:
+            exact = torch.where(live[..., None], exact, 0)
+        held = want if scale == 1 else exact
         times = {name: [] for name in libs}
-        errors = {}
+        errors, errors64 = {}, {}
         for order in (list(libs), list(libs)[::-1]):
             for name in order:
                 with kv.use("grouped_matmul", libs[name]):
@@ -89,12 +116,17 @@ def main() -> int:
                         errors[name] = f"FAIL {err}"
                         continue
                     errors[name] = (out - want).abs().max().item()
-                    if not torch.allclose(out, want, rtol=2e-5, atol=2e-5):
+                    errors64[name] = (out.double() - exact).abs().max().item()
+                    if not torch.allclose(out.double(), held.double(),
+                                          rtol=2e-5, atol=2e-5):
                         errors[name] = f"FAIL {errors[name]}"
                     times[name].append(
                         kv.cuda_ms(lambda: gm.grouped_matmul(x, w, rows)))
-        line = {"shape": [E, C, d, f], "rows": kind,
-                "ms": times, "max_abs_err": errors}
+        line = {"shape": [E, C, d, f], "rows": kind, "x_scale": scale,
+                "ms": times, "max_abs_err": errors,
+                "max_abs_err_float64": errors64,
+                "plain_max_abs_err_float64": (
+                    want.double() - exact).abs().max().item()}
         if rows is None:
             line["bmm_ms"] = kv.cuda_ms(lambda: torch.bmm(x, w))
         print(json.dumps(line))

@@ -65,7 +65,8 @@ def build(lib: str, variants: Variants) -> Dict[str, ctypes.CDLL]:
             print(f"variant {name}: build failed\n{log[-2000:]}")
             continue
         for line in log.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
+            if any(k in line for k in ("Compiling entry", "Used", "spill",
+                                       "wgmma")):
                 print(f"ptxas {name}: {line.split('ptxas info    : ')[-1]}")
         cdll = ctypes.CDLL(str(so))
         for fn, (restype, argtypes) in _build.SIGNATURES[lib].items():
