@@ -18,14 +18,17 @@ Run from the repository root, with nothing else on the command line:
    densely and with ``rows`` (occupied rows per expert) as the moe path
    passes them, at the prefill shapes also with NaN past ``rows`` and
    with x scaled by 8, every prefill case also held to the product in
-   float64, and each case's variant (gmm_small, gmm_wgmma or gmm_large)
-   checked. The build fails the run if ``ptxas`` spills in gmm_wgmma.
+   float64, and each case's variant (K1: flash_wgmma in fp32 or bf16;
+   K2: gmm_small, gmm_wgmma or gmm_large) checked. The build fails the run
+   if ``ptxas`` spills in flash_wgmma or gmm_wgmma, and prints any line
+   of ptxas's about serialized wgmma (C7514).
 3. Dense engine: serves full-width qwen2-0.5b (random weights drawn on
    the card from a seed) through ``ServeEngine.generate``, checks that
-   every layer's prefill attention went through K1 (each launch's device
-   time read from CUDA events around it, and from a torch.profiler trace
-   of a repeat of the run), and holds the card against the port's CPU
-   path at full depth on weights drawn on the CPU.
+   every layer's prefill attention went through K1, on its 3xTF32
+   variant (each launch's device time read from CUDA events around it,
+   and from a torch.profiler trace of a repeat of the run), and holds the
+   card against the port's CPU path at full depth on weights drawn on the
+   CPU.
 4. Moe engine: serves full-width, 24-layer qwen2-moe-a2.7b in fp32
    (14.3 B parameters, 57 GB, drawn on the card from a CUDA generator)
    through ``ServeEngine.generate``, checks that every prefill
@@ -93,7 +96,10 @@ Run from the repository root, with nothing else on the command line:
     on the CUDA cores and as 3xTF32 on the tensor cores), and beside its
     device time per launch inside the main run (from the trace of its
     repeat); K1 also in bf16; K2 also with the ``rows`` of the main run,
-    beside the least time for what those rows need.
+    beside the least time for what those rows need. K1 and SDPA are
+    timed by their device time in a torch.profiler trace (K2 too, beside
+    its CUDA-event time), since back-to-back calls of a kernel shorter
+    than its wrapper read the host.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}``
 line before the last line, which is ``{"ok": true, "device": {...}}``.
@@ -177,7 +183,9 @@ def card() -> str:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, by CUDA
+    events around them: where ``fn``'s kernels are shorter than the host's
+    time to launch them, this reads the host."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -189,6 +197,49 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, part: str = "", iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of ``fn`` per call, from a torch.profiler trace of
+    ``iters`` calls: for each kernel name (those that hold ``part``), its
+    mean duration times its launches a call, summed. Unlike ``cuda_ms``
+    it leaves out the gaps in which the device waits for the host.
+
+    Late in this script's process a trace loses its first records (at
+    the timing phase, all of 50 calls of K1), so the calls follow
+    ``PAD`` short spin kernels, of which some must be left: then no
+    record of the calls is lost."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PAD):
+            torch.cuda._sleep(100)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    pad = [e for e in kernels if "spin" in e.name or "sleep" in e.name]
+    by_name = defaultdict(list)
+    for e in kernels:
+        if part in e.name and "spin" not in e.name and "sleep" not in e.name:
+            by_name[e.name].append(e.time_range.elapsed_us())
+    per_call = {n: round(len(d) / iters) for n, d in by_name.items()}
+    check(len(pad) > 0 and sum(per_call.values()) > 0,
+          f"the trace of {PAD} spin kernels and {iters} calls holds "
+          f"{len(pad)} and {sum(map(len, by_name.values()))} kernels named "
+          f"{part!r}")
+    return sum(sum(d) / len(d) * per_call[n]
+               for n, d in by_name.items()) / 1e3
+
+
+# Spin kernels ahead of the calls in ``device_ms``'s trace.
+PAD = 3000
 
 
 def attention_inputs(B, Sq, Sk, H, Hkv, hd, dtype, seed):
@@ -428,7 +479,9 @@ def kernel_phase(fa, gm, ref, cfgs) -> None:
             enumerate(checks):
         q, k, v = attention_inputs(B, Sq, Sk, H, Hkv, hd, dtype, seed=i)
         q = q * scale
+        before = dict(fa.route_launches)
         out = fa.flash_attention(q, k, v, causal=causal).float()
+        ran = [r for r, n in fa.route_launches.items() if n != before[r]]
         want = ref.gqa_attention_ref(q, k, v, causal=causal).float()
         note = ""
         if scale != 1:
@@ -448,6 +501,8 @@ def kernel_phase(fa, gm, ref, cfgs) -> None:
         check(bool(torch.isfinite(out).all()) and ok,
               f"flash_attention disagrees with its plain version "
               f"(case {i}, {dtype}, q x{scale})")
+        check(ran == [fa.variant(hd, dtype)],
+              f"flash_attention case {i} ({dtype}) ran {ran}")
 
     # (E, C, d, f): the moe path's prefill gate/up and down and its
     # decode step, the reference's sweep (ragged edges), one element;
@@ -632,8 +687,11 @@ def serve(eng, cfg, counters, watch=contextlib.nullcontext(), n_new=64):
 
 # The kernels of the port's two wrappers by name in a torch.profiler trace
 # (each launch of a wrapper runs exactly one of them).
-TRACED_KERNELS = {"flash_attention": "flash_fwd_kernel",
+TRACED_KERNELS = {"flash_attention": "flash_wgmma",
                   "grouped_matmul": "gmm_"}
+# The tensor-core kernels, whose build fails the run if ptxas spills in
+# them.
+TENSOR_CORE = ("flash_wgmma", "gmm_wgmma")
 
 
 @contextlib.contextmanager
@@ -735,9 +793,11 @@ def traced_repeat(fa, gm, eng, prompts, n_new: int, tally: dict) -> None:
         tally[key]["traced_ms"] = t["traced_ms"]
 
 
-def check_k1_in_path(cfg, tally: dict) -> None:
+def check_k1_in_path(fa, cfg, tally: dict) -> None:
     """One K1 launch per full-sequence attention (``attention_layers``),
-    all in the prefill, at its serving shape; none without attention."""
+    all in the prefill, at its serving shape, every one on the fp32
+    variant (3xTF32 ``flash_wgmma``, counted by the wrapper since the
+    main run began); none without attention."""
     n = attention_layers(cfg)
     want = {("flash_attention", "prefill", prefill_attention(cfg)[:6]): n
             } if n else {}
@@ -745,6 +805,13 @@ def check_k1_in_path(cfg, tally: dict) -> None:
            if k[0] == "flash_attention"}
     check(got == want, f"{cfg.name} K1 launches by phase and shape {got}, "
           f"want {want}")
+    want_routes = dict.fromkeys(fa.ROUTES, 0)
+    if n:
+        want_routes[fa.variant(cfg.d_head, torch.float32)] = n
+    print(f"{cfg.name} main path K1 launches by variant: "
+          + json.dumps(fa.route_launches))
+    check(fa.route_launches == want_routes, f"{cfg.name} K1 launches by "
+          f"variant {fa.route_launches}, want {want_routes}")
 
 
 def draw_on_card(cfg):
@@ -785,7 +852,7 @@ def moe_engine_phase(fa, gm, cfg):
     check(launches["grouped_matmul"] == want,
           f"moe generate made {launches['grouped_matmul']} grouped_matmul "
           f"launches, want 3 * {L} * (1 + 64) = {want}")
-    check_k1_in_path(cfg, tally)
+    check_k1_in_path(fa, cfg, tally)
     # gate and up run at (E, G*C, d) x (E, d, d_e), down at
     # (E, G*C, d_e) x (E, d_e, d), once per layer per forward
     E, d, d_e = cfg.n_experts, cfg.d_model, cfg.d_expert
@@ -853,7 +920,7 @@ def family_engine_phase(fa, gm, cfg, n_new: int):
           f"{cfg.name} prefill made {launches['flash_attention']} "
           f"flash_attention launches, want {n}")
     check(launches["grouped_matmul"] == 0, f"the {cfg.name} path ran K2")
-    check_k1_in_path(cfg, tally)
+    check_k1_in_path(fa, cfg, tally)
     if n:
         traced_repeat(fa, gm, eng, prompts, n_new, tally)
     for key in ("traced_ms", "event_ms"):
@@ -948,20 +1015,24 @@ def moe_card_vs_cpu(cfg, n_layers: int = 2, n: int = 16) -> None:
 
 def device_kernels(fn, top: int = 3) -> dict:
     """The kernels one call of ``fn`` runs on the card, from a
-    torch.profiler trace of it: how many, and the names of the ``top``
-    longest (or why there is no trace)."""
+    torch.profiler trace of it after ``PAD`` spin kernels (as in
+    ``device_ms``): how many, and the names of the ``top`` longest (or
+    why there is no trace)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD):
+                torch.cuda._sleep(100)
             fn()
             torch.cuda.synchronize()
     except RuntimeError as err:   # the trace is a label, not a check
         return {"count": None, "longest": [f"not traced: {err}"]}
     ran = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin" not in e.name and "sleep" not in e.name),
                  key=lambda e: -e.time_range.elapsed_us())
     return {"count": len(ran), "longest": [e.name[:120] for e in ran[:top]]}
 
@@ -970,7 +1041,10 @@ def k1_row(fa, ref, model, shape, dtype, tally=None):
     """K1 timed at (B, Sq, Sk, H, Hkv, hd, causal) in ``dtype`` beside its
     bounds, its plain version and SDPA (with the kernels SDPA ran), and
     its launches and device time per launch in the main run's ``tally``
-    (0 launches without one)."""
+    (0 launches without one). K1's and SDPA's times are device times from
+    a torch.profiler trace (``device_ms``); CUDA events around the same
+    calls, which read the host where it paces them, are kept beside
+    (``event_ms``, ``library_event_ms``)."""
     import torch.nn.functional as F
 
     B, Sq, Sk, H, Hkv, hd, causal = shape
@@ -984,9 +1058,13 @@ def k1_row(fa, ref, model, shape, dtype, tally=None):
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
 
+    def kernel():
+        return fa.flash_attention(q, k, v, causal=causal)
+
     t = (tally or {}).get(("flash_attention", "prefill", shape[:6]),
                           {"launches": 0})
     launches = t["launches"]
+    variant = fa.variant(hd, dtype)
     row = {
         "name": "flash_attention",
         "model": model,
@@ -995,15 +1073,18 @@ def k1_row(fa, ref, model, shape, dtype, tally=None):
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
-        "products": ("3xTF32 mma.sync" if dtype == torch.float32
-                     else "bf16 mma.sync"),
+        "variant": variant,
+        "products": {"flash_wgmma_3xtf32": "3xTF32 wgmma",
+                     "flash_wgmma_bf16": "bf16 wgmma"}[variant],
         "launches": launches,
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
+        "ms": device_ms(kernel, TRACED_KERNELS["flash_attention"]),
+        "event_ms": cuda_ms(kernel),
         "plain_ms": cuda_ms(
             lambda: ref.gqa_attention_ref(q, k, v, causal=causal)),
         **attention_bound(*shape, dtype),
-        "library_ms": cuda_ms(sdpa),
+        "library_ms": device_ms(sdpa),
+        "library_event_ms": cuda_ms(sdpa),
         "library_kernels": device_kernels(sdpa),
     }
     if launches:
@@ -1076,6 +1157,8 @@ def timing_phase(fa, gm, ref, tallies, cfgs):
             "mean_rows": float(rows.sum(dim=1).double().mean()),
             "max_abs_err": err,
             "ms": cuda_ms(lambda: gm.grouped_matmul(x, w)),
+            "device_ms": device_ms(lambda: gm.grouped_matmul(x, w),
+                                   TRACED_KERNELS["grouped_matmul"]),
             "plain_ms": cuda_ms(lambda: ref.grouped_matmul_ref(x, w)),
             **gmm_bound(E, C, d, f, torch.float32),
             "library_ms": cuda_ms(lambda: torch.bmm(x, w)),
@@ -1623,13 +1706,13 @@ def main() -> int:
     for lib, log in _build.logs.items():   # -Xptxas -v: registers, spills
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "Used", "spill",
-                                       "wgmma")):
+                                       "wgmma", "C7514")):
                 print(f"ptxas {lib}: {line.split('ptxas info    : ')[-1]}")
             if "Compiling entry" in line:
                 kernel = line
-            elif "spill" in line and "gmm_wgmma" in kernel:
+            elif "spill" in line and any(k in kernel for k in TENSOR_CORE):
                 check(" 0 bytes spill stores, 0 bytes spill loads" in line,
-                      f"ptxas spills in gmm_wgmma: {line}")
+                      f"ptxas spills in {kernel}: {line}")
 
     cfgs = {k: ARCHS[k] for k in ("qwen2-0.5b", "qwen2-moe-a2.7b",
                                   "zamba2-7b", "internvl2-1b",

@@ -29,6 +29,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "flash_attention": {
         "repro_flash_attention_fwd": (_I, [_P, _P, _P, _P] + [_I] * 8 + [_P]),
+        "repro_flash_attention_route": (_I, [_I, _I]),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "grouped_matmul": {

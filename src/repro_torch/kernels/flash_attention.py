@@ -18,6 +18,20 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 # Kernel launches in this process; callers reset it to 0 to count a run.
 launches = 0
+# The same launches by the kernel variant that ran (see the note in
+# csrc/flash_attention.cu): flash_wgmma in fp32 (3xTF32 on the tensor
+# cores) and in bf16; callers reset them to 0 with ``launches``.
+ROUTES = ("flash_wgmma_3xtf32", "flash_wgmma_bf16")
+route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def variant(hd: int, dtype: torch.dtype) -> str:
+    """The kernel variant a CUDA launch takes for head dim ``hd`` and
+    ``dtype`` (the C library's ``repro_flash_attention_route``)."""
+    if hd not in HEAD_DIMS or dtype not in DTYPES:
+        raise ValueError(f"the kernel takes head dim {HEAD_DIMS} in "
+                         f"{DTYPES}; got {hd}, {dtype}")
+    return ROUTES[dtype == torch.bfloat16]
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,7 +80,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the kernel takes contiguous q, k, v")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the kernel takes 16-byte aligned q, k, v (its "
-                         "copies move 16 bytes at a time)")
+                         "TMA copies need it)")
     lib = _build.load("flash_attention")
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -80,4 +94,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {rc} ({msg})")
     launches += 1
+    route_launches[ROUTES[lib.repro_flash_attention_route(
+        hd, int(q.dtype == torch.bfloat16))]] += 1
     return o

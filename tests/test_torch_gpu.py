@@ -74,6 +74,10 @@ def _tol(dtype):
     ((1, 300, 300, 2, 2, 112), True),
     ((1, 70, 300, 4, 2, 112), False),
     ((2, 129, 127, 8, 8, 112), False),
+    # hd 112 with Sk off every key tile and Sq != Sk (its last TMA box of
+    # hd reads 0 past 112, its last key tile 0 past Sk)
+    ((2, 77, 203, 4, 2, 112), True),
+    ((1, 33, 97, 2, 1, 112), False),
 ])
 def test_kernel_matches_plain(hopper, shape, causal, dtype):
     q, k, v = _inputs(shape, dtype)
@@ -112,6 +116,56 @@ def test_kernel_matches_plain_peaked(hopper, shape, causal, seed):
                              causal=causal).float()
     torch.cuda.synchronize()
     torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kind", ["nan", "large"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_stays_within_its_sequence(hopper, hd, dtype, causal, kind):
+    """B = 2 with Sk = 77, off every key tile: the last key tile of the
+    first sequence runs past Sk, where the copies must read 0 and not the
+    second sequence's keys and values. Those are NaN ("nan": a read would
+    reach the output through 0 * NaN) or scaled by 1e4 ("large"); the
+    first sequence's output must equal the plain version on it alone."""
+    q, k, v = _inputs((2, 45, 77, 4, 2, hd), dtype, seed=5)
+    if kind == "nan":
+        k[1], v[1] = float("nan"), float("nan")
+    else:
+        k[1], v[1] = k[1] * 1e4, v[1] * 1e4
+    out = fa.flash_attention(q, k, v, causal=causal)
+    want = gqa_attention_ref(q[:1], k[:1], v[:1], causal=causal)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    torch.testing.assert_close(out[:1].float(), want.float(), rtol=tol,
+                               atol=tol)
+    if kind == "large":
+        assert bool(torch.isfinite(out[1]).all())
+
+
+# The prefill shapes of the served models: qwen2-0.5b, qwen2-moe-a2.7b,
+# zamba2-7b's shared block, internvl2-1b (S = 756 with its patches) and
+# musicgen-large.
+MAIN_PATH_SHAPES = [(4, 500, 500, 14, 2, 64), (4, 500, 500, 16, 16, 128),
+                    (4, 500, 500, 32, 32, 112), (4, 756, 756, 14, 2, 64),
+                    (4, 500, 500, 32, 32, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MAIN_PATH_SHAPES)
+def test_main_path_shapes_run_flash_wgmma(hopper, shape, dtype):
+    """Each served model's prefill shape goes through flash_wgmma, the
+    variant of its dtype (3xTF32 in fp32), and holds its tolerance."""
+    q, k, v = _inputs(shape, dtype, seed=23)
+    before = dict(fa.route_launches)
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ran = {r: n - before[r] for r, n in fa.route_launches.items()
+           if n != before[r]}
+    assert ran == {fa.variant(shape[-1], dtype): 1}
+    tol = _tol(dtype)
+    torch.testing.assert_close(out.float(), gqa_attention_ref(
+        q, k, v).float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -8,6 +8,8 @@ CUDA kernel itself is tested on the card in ``test_torch_gpu.py``; its
 fp32 arithmetic (3xTF32 on the tensor cores) is emulated here in plain
 torch and held to the oracle too.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,51 +173,104 @@ def _tf32(x):
     return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _matmul_3xtf32(a, b):
-    """a @ b as the CUDA kernel computes it in fp32: each operand split
-    into big = tf32(x) and small = x - big, which the tensor cores
-    truncate to tf32; small*big + big*small + big*big summed in fp32 over
-    16-deep chunks, each chunk then added to the fp32 accumulator."""
-    def split(x):
-        big = _tf32(x)
-        small = (x - big).view(torch.int32) & ~0x1FFF
-        return big, small.view(torch.float32)
+def _trunc_tf32(x):
+    """x's top 19 bits: what the tensor cores read of an fp32 operand."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
 
-    (ab, as_), (bb, bs) = split(a), split(b)
+
+def _kernel_constant(name):
+    """A ``constexpr int`` of the CUDA source, as the kernel builds it."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _chunk_of(steps, c):
+    """The kernel's chunk_of: the deepest count up to c dividing steps."""
+    return c if steps % c == 0 else _chunk_of(steps, c - 1)
+
+
+def _matmul_3xtf32(a, b, chunk, a_in_registers):
+    """a @ b as the CUDA kernel computes it in fp32: each operand split
+    into a big and a small tf32 part and small*big + big*small + big*big
+    summed over chunks of ``chunk`` 8-deep steps (or fewer, as
+    ``_chunk_of`` picks), each chunk then added to the fp32 sum. An
+    operand in shared memory (b; a unless ``a_in_registers``) is read as
+    its top 19 bits, with its small part x - trunc(x) rounded to tf32; one
+    in registers (P) is rounded, and its rest rounded too."""
+    def split(x, in_registers):
+        big = _tf32(x) if in_registers else _trunc_tf32(x)
+        return big, _tf32(x - big)
+
+    (ab, as_), (bb, bs) = split(a, a_in_registers), split(b, False)
+    depth = 8 * _chunk_of(a.shape[-1] // 8, chunk)
     out = torch.zeros(a.shape[:-1] + b.shape[-1:])
-    for k0 in range(0, a.shape[-1], 16):
-        c = slice(k0, k0 + 16)
+    for k0 in range(0, a.shape[-1], depth):
+        c = slice(k0, k0 + depth)
         out = out + (as_[..., c] @ bb[..., c, :] + ab[..., c] @ bs[..., c, :]
                      + ab[..., c] @ bb[..., c, :])
     return out
 
 
-def _attention_emulated(q, k, v, matmul):
-    """Causal attention with both products through ``matmul``, the
+def _attention_emulated(q, k, v, qk, pv):
+    """Causal attention with its products through ``qk`` and ``pv``, the
     softmax in fp32 as the plain version takes it."""
     sq, sk, hd = q.shape[1], k.shape[1], q.shape[2]
-    scores = matmul(q, k.transpose(1, 2)) / hd ** 0.5
+    scores = qk(q, k.transpose(1, 2)) / hd ** 0.5
     mask = torch.ones(sq, sk, dtype=torch.bool).tril(sk - sq)
     w = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
-    return matmul(w, v)
+    return pv(w, v)
 
 
+@pytest.mark.parametrize("hd", [128, 112])
 @pytest.mark.parametrize("q_scale", [1, 8])
-def test_3xtf32_scheme_meets_fp32_tolerance(q_scale):
-    """The kernel's fp32 route (3xTF32 on the tensor cores), emulated in
-    plain torch at a cut of the qwen2-moe-a2.7b prefill (B=1, S=200,
-    H=2, hd=128), holds 2e-5 against the reference package's oracle; with
-    q scaled by 8 (logits x8, a peaked softmax) as well. Plain TF32, the
-    big parts alone, misses by more than ten times the tolerance."""
+def test_3xtf32_scheme_meets_fp32_tolerance(q_scale, hd):
+    """The kernel's fp32 route (3xTF32 on wgmma, with the source's chunk
+    depths F32_QK_CHUNK and F32_PV_CHUNK; P V's chunks run over the keys,
+    here over 32 at a time, a tile at hd 112 and 128), emulated in plain
+    torch at a cut of the qwen2-moe-a2.7b (hd 128) and zamba2-7b (hd 112,
+    14 steps of 8) prefills (B=1, S=200, H=2), holds 2e-5 against the
+    reference package's oracle; with q scaled by 8 (logits x8, a peaked
+    softmax) as well. Plain TF32, the big parts alone, misses by more than
+    ten times the tolerance."""
     rng = np.random.default_rng(14)
-    q, k, v = (rng.standard_normal((2, 200, 128)).astype(np.float32)
+    q, k, v = (rng.standard_normal((2, 200, hd)).astype(np.float32)
                for _ in range(3))
     q *= q_scale
     want = _np(jref.attention_ref(jnp.asarray(q), jnp.asarray(k),
                                   jnp.asarray(v), causal=True))
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
-    got = _attention_emulated(tq, tk, tv, _matmul_3xtf32)
+    qk_chunk = _kernel_constant("F32_QK_CHUNK")
+    pv_chunk = _kernel_constant("F32_PV_CHUNK")
+
+    def pv(w, v):   # over key tiles of 32, zero-padded to whole tiles
+        pad = -w.shape[-1] % 32
+        wp = torch.nn.functional.pad(w, (0, pad))
+        vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        return sum(_matmul_3xtf32(wp[..., t:t + 32], vp[:, t:t + 32],
+                                  pv_chunk, True)
+                   for t in range(0, wp.shape[-1], 32))
+
+    got = _attention_emulated(
+        tq, tk, tv, lambda a, b: _matmul_3xtf32(a, b, qk_chunk, False), pv)
     np.testing.assert_allclose(_np(got), want, rtol=2e-5, atol=2e-5)
     tf32_only = _attention_emulated(tq, tk, tv,
+                                    lambda a, b: _tf32(a) @ _tf32(b),
                                     lambda a, b: _tf32(a) @ _tf32(b))
     assert np.abs(_np(tf32_only) - want).max() > 10 * 2e-5
+
+
+def test_flash_attention_variant_follows_dtype():
+    """The wrapper's variant is a function of head dim and dtype alone:
+    3xTF32 flash_wgmma for fp32, the bf16 one for bf16; other head dims
+    and dtypes have none. A CPU call launches none."""
+    for hd in fa.HEAD_DIMS:
+        assert fa.variant(hd, torch.float32) == "flash_wgmma_3xtf32"
+        assert fa.variant(hd, torch.bfloat16) == "flash_wgmma_bf16"
+    assert set(fa.ROUTES) == set(fa.route_launches)
+    for hd, dtype in ((96, torch.float32), (64, torch.float16)):
+        with pytest.raises(ValueError):
+            fa.variant(hd, dtype)
+    _, (tq, tk, tv) = _inputs(5, (1, 64, 2, 64), (1, 64, 1, 64), "float32")
+    before = dict(fa.route_launches)
+    tops.flash_attention(tq, tk, tv)
+    assert fa.route_launches == before

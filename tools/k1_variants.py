@@ -8,23 +8,26 @@ Run from the repository root on a machine with the card and ``nvcc``:
                                  [--sass]
 
 A variant is ``src/repro_torch/kernels/csrc/flash_attention.cu`` with
-some of its ``constexpr int NAME = value;`` constants replaced (warps a
-block, keys a tile, stages of the K/V ring, the fp32 chunk depth).
-``--also`` adds another source with the same C interface as a variant
-of its own, for example an earlier commit's kernel (the fp32 route on
-the CUDA cores) unpacked with ``git archive``. Every variant is built
-(one ``nvcc`` each, all at once, into
+some of its ``constexpr int NAME = value;`` constants replaced (consumer
+and helper warpgroups, keys a tile, the fp32 chunk depths). ``--also``
+adds another source with the same C interface as a variant of its own,
+for example an earlier commit's kernel unpacked with ``git archive``.
+Every variant is built (one ``nvcc`` each, all at once, into
 ``build/flash_attention_variants/``), launched through the port's own
 wrapper, held against the plain version (its largest error, and its
 largest error over the tolerance, 2e-5 + 2e-5 |want| in fp32 and 2e-2 +
 2e-2 |want| in bf16, where above 1 fails; also with q scaled by 8,
 where the softmax is peaked, and there against float64 too), and timed
-with CUDA events (mean of 200 launches) at the prefill shapes of the
-main paths (``--model`` picks some), in fp32 and bf16, in two rounds in
-opposite orders, with SDPA timed beside them in each round. Prints the
-card's name and power limit, ``ptxas`` registers and spills per variant
-(with ``--sass``, the opcode counts of the source's kernels too), and
-one JSON line per case.
+at the prefill shapes of the main paths (``--model`` picks some), in
+fp32 and bf16, in two rounds in opposite orders, with SDPA timed beside
+them in each round. Times are device times from a torch.profiler
+trace of 100 launches (``kernel_variants.device_ms``: each kernel's mean
+duration times its launches a call, so that the records the profiler
+drops at the end of a trace bias nothing) (``ms``); CUDA events around
+100 back-to-back launches, which read the host where it paces them, are
+kept beside (``event_ms``). Prints the card's name and power limit,
+``ptxas`` registers and spills per variant (with ``--sass``, the opcode
+counts of the source's kernels too), and one JSON line per case.
 """
 from __future__ import annotations
 
@@ -42,26 +45,28 @@ from repro_torch.kernels.ref import gqa_attention_ref
 
 VARIANTS = {
     "source": {},
-    "STAGES=3": {"STAGES": 3},
-    "WARPS=2": {"WARPS": 2},
-    "WARPS=8": {"WARPS": 8},
-    "F32_BK_HD128=64": {"F32_BK_HD128": 64},
-    "F32_BK_HD112=64": {"F32_BK_HD112": 64},
+    "F32_WG_HD64=1": {"F32_WG_HD64": 1},
     "F32_BK_HD64=32": {"F32_BK_HD64": 32},
-    "BF16_BK_HD128=32": {"BF16_BK_HD128": 32},
-    "BF16_BK_HD112=32": {"BF16_BK_HD112": 32},
-    # at hd 112 (14 steps of 8) q k^T takes the deepest chunk that
-    # divides 14: 2 for F32_CHUNK=4, 7 for 8, 14 for 16
-    "F32_CHUNK=1": {"F32_CHUNK": 1},
-    "F32_CHUNK=4": {"F32_CHUNK": 4},
-    "F32_CHUNK=8": {"F32_CHUNK": 8},
-    "F32_CHUNK=16": {"F32_CHUNK": 16},
+    "F32_HELPER_WG=0": {"F32_HELPER_WG": 0},
+    "BF16_WG=1": {"BF16_WG": 1},
+    "BF16_BK=128": {"BF16_BK": 128},
+    # q k^T at hd 112 (14 steps of 8) takes the deepest chunk that
+    # divides 14: 2 for F32_QK_CHUNK=4, 7 for 8
+    "F32_QK_CHUNK=1": {"F32_QK_CHUNK": 1},
+    "F32_QK_CHUNK=4": {"F32_QK_CHUNK": 4},
+    "F32_PV_CHUNK=2": {"F32_PV_CHUNK": 2},
+    "F32_PV_CHUNK=8": {"F32_PV_CHUNK": 8},
 }
 # (B, Sq, Sk, H, Hkv, hd, causal): the prefill of 4 x 500 tokens of
-# qwen2-0.5b, qwen2-moe-a2.7b and zamba2-7b's shared attention block
+# qwen2-0.5b, qwen2-moe-a2.7b, zamba2-7b's shared attention block,
+# internvl2-1b (756 positions with its patches) and musicgen-large
 SHAPES = {"qwen2-0.5b": (4, 500, 500, 14, 2, 64, True),
           "qwen2-moe-a2.7b": (4, 500, 500, 16, 16, 128, True),
-          "zamba2-7b": (4, 500, 500, 32, 32, 112, True)}
+          "zamba2-7b": (4, 500, 500, 32, 32, 112, True),
+          "internvl2-1b": (4, 756, 756, 14, 2, 64, True),
+          "musicgen-large": (4, 500, 500, 32, 32, 64, True)}
+# the shapes also timed in bf16 (no main path runs it)
+BF16_SHAPES = ("qwen2-0.5b", "qwen2-moe-a2.7b", "zamba2-7b")
 
 
 def main() -> int:
@@ -93,6 +98,8 @@ def main() -> int:
         if args.model and model not in args.model:
             continue
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            if dtype == torch.bfloat16 and model not in BF16_SHAPES:
+                continue
             g = torch.Generator(device="cuda").manual_seed(0)
             q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
                        for s in ((B, Sq, H, hd), (B, Sk, Hkv, hd),
@@ -106,8 +113,9 @@ def main() -> int:
                                        causal).float()
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             times = {name: [] for name in libs}
+            events = {name: [] for name in libs}
             # max |out - want| and max |out - want| / (tol + tol |want|)
-            errors, errors8, sdpa = {}, {}, []
+            errors, errors8, sdpa, sdpa_events = {}, {}, [], []
             errors64 = {"plain": (want8 - exact8).abs().max().item()}
             for order in (list(libs), list(libs)[::-1]):
                 for name in order:
@@ -124,15 +132,23 @@ def main() -> int:
                             errs[name] = [d.max().item(), (d / (
                                 tol + tol * w.abs())).max().item()]
                         errors64[name] = (out8 - exact8).abs().max().item()
-                        times[name].append(kv.cuda_ms(
-                            lambda: fa.flash_attention(q, k, v, causal),
-                            iters=200))
-                sdpa.append(kv.cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True), iters=200))
+                        def run():
+                            return fa.flash_attention(q, k, v, causal)
+
+                        times[name].append(kv.device_ms(run, iters=100))
+                        events[name].append(kv.cuda_ms(run, iters=100))
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+                sdpa.append(kv.device_ms(library, iters=100))
+                sdpa_events.append(kv.cuda_ms(library, iters=100))
             print(json.dumps({
                 "model": model, "shape": [B, Sq, Sk, H, Hkv, hd],
                 "dtype": str(dtype).replace("torch.", ""), "ms": times,
-                "sdpa_ms": sdpa, "max_abs_err": errors,
+                "event_ms": events, "sdpa_ms": sdpa,
+                "sdpa_event_ms": sdpa_events, "max_abs_err": errors,
                 "max_abs_err_q_x8": errors8,
                 "max_abs_err_q_x8_vs_float64": errors64}))
     return 0

@@ -55,7 +55,8 @@ def build(lib: str, variants: Variants) -> Dict[str, ctypes.CDLL]:
         text = (source or _build.CSRC / f"{lib}.cu").read_text()
         src, so = out / f"v{i}.cu", out / f"v{i}.so"
         src.write_text(variant_source(text, consts))
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(src)]
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+               "-o", str(so), str(src)]
         procs[name] = (so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -66,10 +67,16 @@ def build(lib: str, variants: Variants) -> Dict[str, ctypes.CDLL]:
             continue
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "Used", "spill",
-                                       "wgmma")):
+                                       "wgmma", "C7514")):
                 print(f"ptxas {name}: {line.split('ptxas info    : ')[-1]}")
         cdll = ctypes.CDLL(str(so))
         for fn, (restype, argtypes) in _build.SIGNATURES[lib].items():
+            if not hasattr(cdll, fn):
+                # an earlier source without a newer query (the variant
+                # route): the wrapper counts its launches as variant 0
+                print(f"variant {name}: no {fn}; it reads 0")
+                setattr(cdll, fn, lambda *args: 0)
+                continue
             getattr(cdll, fn).restype = restype
             getattr(cdll, fn).argtypes = argtypes
         libs[name] = cdll
@@ -87,7 +94,8 @@ def use(lib: str, cdll: ctypes.CDLL):
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, by CUDA
+    events around them (this reads the host where it paces the calls)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -99,6 +107,41 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 50, warmup: int = 5, pad: int = 3000) -> float:
+    """Mean device time of ``fn`` per call, from a torch.profiler trace of
+    ``iters`` calls: for each kernel name, its mean duration times its
+    launches a call, summed (the gaps in which the device waits for the
+    host left out). A trace can lose its first records, so the calls
+    follow ``pad`` short spin kernels, of which some must be left."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            torch.cuda._sleep(100)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name: Dict[str, list] = collections.defaultdict(list)
+    spins = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "spin" in e.name or "sleep" in e.name:
+            spins += 1
+        else:
+            by_name[e.name].append(e.time_range.elapsed_us())
+    total = sum(sum(d) / len(d) * round(len(d) / iters)
+                for d in by_name.values())
+    if not spins or total <= 0:
+        kept = sum(map(len, by_name.values()))
+        raise RuntimeError(f"the trace of {pad} spin kernels and {iters} "
+                           f"calls kept {spins} and {kept}")
+    return total / 1e3
 
 
 def sass_opcodes(cdll: ctypes.CDLL) -> Dict[str, Counter[str]]:
