@@ -19,16 +19,19 @@ Run from the repository root, with nothing else on the command line:
    passes them, at the prefill shapes also with NaN past ``rows`` and
    with x scaled by 8, every prefill case also held to the product in
    float64, and each case's variant (K1: flash_wgmma in fp32 or bf16;
-   K2: gmm_small, gmm_wgmma or gmm_large) checked. The build fails the run
-   if ``ptxas`` spills in flash_wgmma or gmm_wgmma, and prints any line
-   of ptxas's about serialized wgmma (C7514).
+   K2: gmm_small, gmm_wgmma, gmm_wgmma_bf16 or gmm_large) checked. The
+   build fails the run if ``ptxas`` spills in flash_wgmma, gmm_wgmma or
+   gmm_wgmma_bf16, and prints any line of ptxas's about serialized wgmma
+   (C7514).
 3. Dense engine: serves full-width qwen2-0.5b (random weights drawn on
    the card from a seed) through ``ServeEngine.generate``, checks that
    every layer's prefill attention went through K1, on its 3xTF32
    variant (each launch's device time read from CUDA events around it,
    and from a torch.profiler trace of a repeat of the run), and holds the
    card against the port's CPU path at full depth on weights drawn on the
-   CPU.
+   CPU. Then the same in bf16 (the KV cache stays fp32, as the
+   reference engine keeps it): every K1 launch on flash_wgmma_bf16, and
+   card against CPU at 2 layers within bf16's limits (``BF16_REL``).
 4. Moe engine: serves full-width, 24-layer qwen2-moe-a2.7b in fp32
    (14.3 B parameters, 57 GB, drawn on the card from a CUDA generator)
    through ``ServeEngine.generate``, checks that every prefill
@@ -38,7 +41,11 @@ Run from the repository root, with nothing else on the command line:
    events around it and from a torch.profiler trace of a repeat of the
    run, which is not traced itself: the profiler slows its host-bound
    decode; K2's ``rows`` read after it), then holds the card against the
-   CPU path at full width and 2 layers.
+   CPU path at full width and 2 layers. Then the same in bf16 (28.6 GB
+   of weights drawn on the card in bf16): K1 on flash_wgmma_bf16, every
+   prefill K2 launch on gmm_wgmma_bf16, and card against CPU within
+   bf16's limits, a prompt with a router near-tie at a compared position
+   of the last layer (``BF16_ROUTER_REL``) swapped for the next seed.
 5. Zamba2 engine: serves zamba2-7b at its full
    width and depth in fp32 (81 Mamba2 layers and 13 applications of the
    shared attention block, 6.75 B parameters, 27 GB, drawn on the card)
@@ -93,10 +100,11 @@ Run from the repository root, with nothing else on the command line:
     version and the PyTorch library call that computes the same
     function (with the kernels that call ran, from torch.profiler),
     beside the least time the card could take for the same work (fp32:
-    on the CUDA cores and as 3xTF32 on the tensor cores), and beside its
-    device time per launch inside the main run (from the trace of its
-    repeat); K1 also in bf16; K2 also with the ``rows`` of the main run,
-    beside the least time for what those rows need. K1 and SDPA are
+    on the CUDA cores and as 3xTF32 on the tensor cores; bf16: on the
+    bf16 tensor cores), and beside its device time per launch inside the
+    main run of its dtype (from the trace of its repeat); K2 also with
+    the ``rows`` of the main run, beside the least time for what those
+    rows need. K1 and SDPA are
     timed by their device time in a torch.profiler trace (K2 too, beside
     its CUDA-event time), since back-to-back calls of a kernel shorter
     than its wrapper read the host.
@@ -387,11 +395,14 @@ def attention_layers(cfg) -> int:
         cfg.family, cfg.n_layers)
 
 
-def engine_bounds(cfg, B, S, max_seq):
-    """Least fp32 times for the full-width engine run: the prefill's
-    multiply-adds at the fp32 peak, and one decode step's bytes at HBM
-    rate: every weight and the whole KV cache or recurrent state read
-    once, but of an untied embedding table only the rows the step
+def engine_bounds(cfg, B, S, max_seq, dtype=torch.float32):
+    """Least times for the full-width engine run with weights in
+    ``dtype``: the prefill's multiply-adds at the fp32 peak (bf16: the
+    larger of them at the bf16 tensor-core peak and every weight read
+    once at 2 bytes), and one decode step's bytes at HBM rate: every
+    weight (4 bytes, bf16 2) and the whole KV cache or recurrent state
+    (4 bytes: the engine keeps it in fp32 whatever the weights' dtype)
+    read once, but of an untied embedding table only the rows the step
     gathers (a tied table is read whole by the unembed).
 
     The prefill counts every weight but the embedding once per position
@@ -422,13 +433,22 @@ def engine_bounds(cfg, B, S, max_seq):
                        + 2 * L * cfg.n_experts * moe_rows(cfg, B, S) * expert)
         active_ops = (2 * B * S * (dense + L * cfg.n_experts_per_tok * expert
                                    + d * V) + attn)
-        out["prefill_active_bound_ms"] = active_ops / H100_FP32_FLOPS * 1e3
     else:
         prefill_ops = 2 * B * T * (body + K * d * V) + attn
-    out["prefill_bound_ms"] = prefill_ops / H100_FP32_FLOPS * 1e3
+    elt = torch.finfo(dtype).bits // 8
+    read_all = elt * cfg.param_count() / H100_BYTES_PER_S * 1e3
+
+    def prefill_ms(ops):
+        if dtype == torch.float32:
+            return ops / H100_FP32_FLOPS * 1e3
+        return max(ops / H100_BF16_FLOPS * 1e3, read_all)
+
+    if cfg.family == "moe":
+        out["prefill_active_bound_ms"] = prefill_ms(active_ops)
+    out["prefill_bound_ms"] = prefill_ms(prefill_ops)
     weights = cfg.param_count() - (0 if cfg.tie_embeddings
                                    else K * (V - B) * d)
-    out["decode_step_bound_ms"] = (4 * (weights + cache)
+    out["decode_step_bound_ms"] = ((elt * weights + 4 * cache)
                                    / H100_BYTES_PER_S * 1e3)
     return out
 
@@ -514,12 +534,15 @@ def kernel_phase(fa, gm, ref, cfgs) -> None:
              (1, 1, 1, 1), (6, 100, 302, 128)]
 
     def variant_of(x, w, C, d_, f):
-        """The variant the wrapper picks: gmm_small at C <= 32, gmm_wgmma
-        for fp32 that TMA can copy, else gmm_large."""
+        """The variant the wrapper picks: gmm_small at C <= 32, where TMA
+        can copy (d and f multiples of 16 bytes) gmm_wgmma in fp32 and
+        gmm_wgmma_bf16 in bf16, else gmm_large."""
         if C <= 32:
             return "gmm_small"
-        if x.dtype == torch.float32 and d_ % 4 == 0 and f % 4 == 0:
-            return "gmm_wgmma"
+        v = 16 // x.element_size()
+        if d_ % v == 0 and f % v == 0:
+            return "gmm_wgmma" if x.dtype == torch.float32 else \
+                "gmm_wgmma_bf16"
         return "gmm_large"
 
     def run(x, w, rows=None):
@@ -550,9 +573,9 @@ def kernel_phase(fa, gm, ref, cfgs) -> None:
     # the same with rows: x zero past rows[e], as the moe path packs it;
     # the rows past rows[e] must come out exactly 0. "nan": NaN in x past
     # rows[e] and in the weights of experts with no row, which must reach
-    # no output; "x8": x scaled by 8, held to the plain version computed
-    # in float64 (the fp32 plain version is itself up to 1.1e-4 off it
-    # there), as every prefill case is too
+    # no output (fp32 and bf16); "x8": x scaled by 8, held to the plain
+    # version computed in float64 (the fp32 plain version is itself up to
+    # 1.1e-4 off it there), as every fp32 prefill case is too
     cases = [((E, dec, d, d_e), "decode"), ((E, dec, d_e, d), "decode"),
              ((E, pre, d, d_e), "ragged"), ((E, pre, d_e, d), "ragged"),
              ((E, dec, d, d_e), "zero"), ((E, pre, d_e, d), "zero"),
@@ -568,7 +591,7 @@ def kernel_phase(fa, gm, ref, cfgs) -> None:
                         seed=i)
         live = torch.arange(C, device="cuda") < rows[:, None]
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-            if kind in ("nan", "x8") and dtype != torch.float32:
+            if kind == "x8" and dtype != torch.float32:
                 continue
             x, w = gmm_inputs(E_, C, d_, f, dtype, seed=200 + i)
             x = torch.where(live[..., None], x * (8 if kind == "x8" else 1),
@@ -607,10 +630,10 @@ def kernel_phase(fa, gm, ref, cfgs) -> None:
 
 @torch.inference_mode()
 def greedy_trace(model, params, prompt: np.ndarray, n: int, device: str):
-    """Last-position prefill logits, greedy tokens and each step's top-2
-    logit margin (the least over an audio step's codebooks), through the
-    model API, as ``ServeEngine`` drives it (a vlm with zero patch
-    embeddings, decoding after them)."""
+    """Last-position prefill logits, greedy tokens, each step's top-2
+    logit margin (the least over an audio step's codebooks) and each
+    step's largest |logit|, through the model API, as ``ServeEngine``
+    drives it (a vlm with zero patch embeddings, decoding after them)."""
     cfg = model.cfg
     toks = torch.as_tensor(prompt, dtype=torch.long, device=device)
     S = toks.shape[-1]
@@ -623,32 +646,57 @@ def greedy_trace(model, params, prompt: np.ndarray, n: int, device: str):
     logits, cache = model.prefill(params, batch, cache)
     first = logits[0, -1].float().cpu()
     last = logits[:, -1:]
-    out, margins = [], []
+    out, margins, peaks = [], [], []
     for i in range(n):
         top2 = last[0, 0].float().topk(2, dim=-1).values
         margins.append(float((top2[..., 0] - top2[..., 1]).min()))
+        peaks.append(float(last[0, 0].float().abs().max()))
         nxt = last.argmax(dim=-1)               # (1, 1) | (1, 1, K)
         if cfg.family == "audio":
             nxt = nxt.movedim(-1, 1)            # (1, K, 1)
         out.append(nxt.flatten().tolist())
         last, cache = model.decode_step(
             params, cache, {"tokens": nxt, "cache_index": n_prefix + S + i})
-    return first, out, margins
+    return first, out, margins, peaks
 
 
-def compare_card_cpu(g_trace, c_trace, n: int) -> None:
-    """Last-position prefill logits to 1e-3; greedy tokens equal up to
-    the first CPU step whose top-2 logit margin is below 1e-4."""
-    (g_first, g_toks, _), (c_first, c_toks, margins) = g_trace, c_trace
+# Card against CPU in bf16, set from bf16's 8-bit mantissa before any card
+# run: the last-position prefill logits within BF16_REL x the CPU's
+# largest |logit|, and greedy tokens equal up to the first CPU step whose
+# top-2 margin is below BF16_REL x that step's largest |logit| (fp32:
+# 1e-3 and a margin of 1e-4). For moe, a router choice whose k-th and
+# (k+1)-th probabilities are within BF16_ROUTER_REL x the k-th is a
+# near-tie that bf16's rounding of the router logits can flip.
+BF16_REL = 2.0 ** -5
+BF16_ROUTER_REL = 2.0 ** -8
+
+
+def compare_card_cpu(g_trace, c_trace, n: int, dtype=torch.float32) -> None:
+    """fp32: last-position prefill logits to 1e-3, greedy tokens equal up
+    to the first CPU step whose top-2 logit margin is below 1e-4. bf16:
+    the same, relative to the largest |logit| by ``BF16_REL``."""
+    (g_first, g_toks, _, _), (c_first, c_toks, margins, peaks) = \
+        g_trace, c_trace
     err = (g_first - c_first).abs().max().item()
-    print(f"prefill last-position logits, card vs CPU: max|d|={err:.3e} "
-          f"(limit 1e-3)")
-    check(math.isfinite(err) and err <= 1e-3,
+    if dtype == torch.float32:
+        limit, near = 1e-3, [1e-4] * n
+        what = "1e-4"
+    else:
+        limit = BF16_REL * c_first.abs().max().item()
+        near = [BF16_REL * p for p in peaks]
+        what = f"{BF16_REL:g} x the step's largest |logit|"
+    print(f"prefill last-position logits, card vs CPU, {dtype}: "
+          f"max|d|={err:.3e} (limit {limit:.3e}; largest CPU |logit| "
+          f"{c_first.abs().max().item():.3e})")
+    check(math.isfinite(err) and err <= limit,
           "card and CPU prefill logits disagree")
-    close = next((i for i, m in enumerate(margins) if m < 1e-4), n)
+    close = next((i for i, m in enumerate(margins) if m < near[i]), n)
     matched = next((i for i in range(n) if g_toks[i] != c_toks[i]), n)
     print(f"greedy tokens, card vs CPU: {matched}/{n} steps match; first "
-          f"CPU top-2 margin < 1e-4 at step {close}")
+          f"CPU top-2 margin < {what} at step {close}")
+    if dtype != torch.float32:
+        print("CPU top-2 margins / largest |logit| by step: "
+              + json.dumps([m / p for m, p in zip(margins, peaks)]))
     check(matched >= close, "greedy tokens diverge before a near-tie")
 
 
@@ -672,16 +720,18 @@ def serve(eng, cfg, counters, watch=contextlib.nullcontext(), n_new=64):
     launches = {mod.__name__.rsplit(".", 1)[-1]: mod.launches
                 for mod in counters}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"{cfg.name} main path kernel launches: {json.dumps(launches)} "
-          f"(n_layers={cfg.n_layers})")
+    dtype = next(eng.params.parameters()).dtype
+    print(f"{cfg.name} {dtype} main path kernel launches: "
+          f"{json.dumps(launches)} (n_layers={cfg.n_layers})")
     check(res.tokens.shape == (4, *K, n_new) and res.tokens.min() >= 0
           and res.tokens.max() < cfg.vocab_size, "generated tokens malformed")
-    engine = {"model": cfg.name, "batch": 4, "prompt": 500, "n_new": n_new,
+    engine = {"model": cfg.name, "dtype": str(dtype).replace("torch.", ""),
+              "batch": 4, "prompt": 500, "n_new": n_new,
               "prefill_ms": res.prefill_s * 1e3,
               "decode_tokens_per_s": res.tokens_per_s,
               "decode_step_ms": res.decode_s / n_new * 1e3,
               "peak_device_gb": peak_gb,
-              **engine_bounds(cfg, 4, 500, 1024)}
+              **engine_bounds(cfg, 4, 500, 1024, dtype)}
     return prompts, launches, engine
 
 
@@ -690,7 +740,7 @@ def serve(eng, cfg, counters, watch=contextlib.nullcontext(), n_new=64):
 TRACED_KERNELS = {"flash_attention": "flash_wgmma",
                   "grouped_matmul": "gmm_"}
 # The tensor-core kernels, whose build fails the run if ptxas spills in
-# them.
+# them ("gmm_wgmma" names gmm_wgmma_bf16 too).
 TENSOR_CORE = ("flash_wgmma", "gmm_wgmma")
 
 
@@ -793,11 +843,11 @@ def traced_repeat(fa, gm, eng, prompts, n_new: int, tally: dict) -> None:
         tally[key]["traced_ms"] = t["traced_ms"]
 
 
-def check_k1_in_path(fa, cfg, tally: dict) -> None:
+def check_k1_in_path(fa, cfg, tally: dict, dtype=torch.float32) -> None:
     """One K1 launch per full-sequence attention (``attention_layers``),
-    all in the prefill, at its serving shape, every one on the fp32
-    variant (3xTF32 ``flash_wgmma``, counted by the wrapper since the
-    main run began); none without attention."""
+    all in the prefill, at its serving shape, every one on the variant of
+    ``dtype`` (``flash_wgmma_3xtf32`` or ``flash_wgmma_bf16``, counted by
+    the wrapper since the main run began); none without attention."""
     n = attention_layers(cfg)
     want = {("flash_attention", "prefill", prefill_attention(cfg)[:6]): n
             } if n else {}
@@ -807,40 +857,43 @@ def check_k1_in_path(fa, cfg, tally: dict) -> None:
           f"want {want}")
     want_routes = dict.fromkeys(fa.ROUTES, 0)
     if n:
-        want_routes[fa.variant(cfg.d_head, torch.float32)] = n
-    print(f"{cfg.name} main path K1 launches by variant: "
+        want_routes[fa.variant(cfg.d_head, dtype)] = n
+    print(f"{cfg.name} {dtype} main path K1 launches by variant: "
           + json.dumps(fa.route_launches))
     check(fa.route_launches == want_routes, f"{cfg.name} K1 launches by "
           f"variant {fa.route_launches}, want {want_routes}")
 
 
-def draw_on_card(cfg):
-    """Random fp32 weights drawn on the card from a CUDA generator seeded
-    0 (the host draws billions of parameters too slowly)."""
+def draw_on_card(cfg, dtype=torch.float32):
+    """Random weights in ``dtype`` drawn on the card from a CUDA generator
+    seeded 0 (the host draws billions of parameters too slowly). Each
+    tensor is drawn in fp32 and copied into the model's ``dtype``, so a
+    bf16 model never holds an fp32 copy of itself (the moe model in fp32
+    takes 57 GB) and holds the fp32 model's weights rounded."""
     from repro_torch import build_model
 
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = build_model(cfg).init(
-        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        torch.Generator(device="cuda").manual_seed(0), dtype, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     print(f"{cfg.name} init (full width, {cfg.n_layers} layers, {n_params} "
-          f"params, fp32, drawn on the card): "
+          f"params, {dtype}, drawn on the card): "
           f"{time.perf_counter() - t0:.1f} s")
     return params
 
 
-def moe_engine_phase(fa, gm, cfg):
-    """Full-width, full-depth moe serving on the card, weights drawn on
-    the card. Returns K1's and K2's launches, rows and device time by
-    CUDA events by phase and shape, and the engine's numbers, all from
-    the main path's run, and each launch's device time from a trace of
-    its repeat (``traced_repeat``)."""
+def moe_engine_phase(fa, gm, cfg, dtype=torch.float32):
+    """Full-width, full-depth moe serving on the card, weights in
+    ``dtype`` drawn on the card. Returns K1's and K2's launches, rows and
+    device time by CUDA events by phase and shape, and the engine's
+    numbers, all from the main path's run, and each launch's device time
+    from a trace of its repeat (``traced_repeat``)."""
     from repro_torch import ServeEngine
 
-    eng = ServeEngine(cfg, params=draw_on_card(cfg), max_seq=1024,
+    eng = ServeEngine(cfg, params=draw_on_card(cfg, dtype), max_seq=1024,
                       device="cuda")
     tally: dict = {}
     prompts, launches, engine = serve(eng, cfg, (fa, gm),
@@ -852,7 +905,7 @@ def moe_engine_phase(fa, gm, cfg):
     check(launches["grouped_matmul"] == want,
           f"moe generate made {launches['grouped_matmul']} grouped_matmul "
           f"launches, want 3 * {L} * (1 + 64) = {want}")
-    check_k1_in_path(fa, cfg, tally)
+    check_k1_in_path(fa, cfg, tally, dtype)
     # gate and up run at (E, G*C, d) x (E, d, d_e), down at
     # (E, G*C, d_e) x (E, d_e, d), once per layer per forward
     E, d, d_e = cfg.n_experts, cfg.d_model, cfg.d_expert
@@ -864,16 +917,18 @@ def moe_engine_phase(fa, gm, cfg):
     k2 = {(ph, s): v for (name, ph, s), v in tally.items()
           if name == "grouped_matmul"}
     got = {k: t["launches"] for k, t in k2.items()}
-    print("moe main path K2 launches by phase and (E, C, d, f): "
+    print(f"moe {dtype} main path K2 launches by phase and (E, C, d, f): "
           + json.dumps({f"{ph} {list(s)}": n for (ph, s), n in got.items()}))
     check(got == want_tally, f"moe K2 launches by phase and shape {got}, "
           f"want {want_tally}")
-    # every prefill launch (C > 32, fp32) on the tensor-core variant,
-    # every decode launch on the byte-streaming one
+    # every prefill launch (C > 32) on the tensor-core variant of the
+    # dtype, every decode launch on the byte-streaming one
     n_pre = sum(n for (ph, _), n in got.items() if ph == "prefill")
-    want_routes = {"gmm_small": want - n_pre, "gmm_wgmma": n_pre,
-                   "gmm_large": 0}
-    print("moe main path K2 launches by variant: "
+    want_routes = dict.fromkeys(gm.ROUTES, 0)
+    want_routes["gmm_small"] = want - n_pre
+    want_routes["gmm_wgmma" if dtype == torch.float32
+                else "gmm_wgmma_bf16"] = n_pre
+    print(f"moe {dtype} main path K2 launches by variant: "
           + json.dumps(gm.route_launches))
     check(gm.route_launches == want_routes, f"moe K2 launches by variant "
           f"{gm.route_launches}, want {want_routes}")
@@ -885,23 +940,23 @@ def moe_engine_phase(fa, gm, cfg):
     for (ph, shape), t in k2.items():
         rows = t["rows"]
         active = (rows > 0).sum(dim=1).double()
-        print(f"moe {ph} K2 {list(shape)} rows per launch: mean active "
+        print(f"moe {dtype} {ph} K2 {list(shape)} rows per launch: mean active "
               f"experts {float(active.mean()):.4f} (max {int(active.max())}),"
               f" mean occupied rows {float(rows.sum(dim=1).double().mean()):.4f}"
               f" of {shape[0] * shape[1]}")
         if ph == "decode":
             check(int(active.max()) <= 16,
                   "a decode K2 launch had more than 16 active experts")
-    print("moe engine: " + json.dumps(engine))
+    print(f"moe engine, {dtype}: " + json.dumps(engine))
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return tally, engine
 
 
-def family_engine_phase(fa, gm, cfg, n_new: int):
+def family_engine_phase(fa, gm, cfg, n_new: int, dtype=torch.float32):
     """Full-width, full-depth serving of a model without experts on the
-    card, weights drawn on the card: one K1 launch per full-sequence
+    card, weights in ``dtype`` drawn on the card: one K1 launch per full-sequence
     attention of the prefill (one a layer, 13 for Zamba2's shared block,
     none for xLSTM), none in decode, no K2. Returns K1's launches and
     device time by CUDA events by phase and shape, and the engine's
@@ -909,7 +964,7 @@ def family_engine_phase(fa, gm, cfg, n_new: int):
     from a trace of its repeat (``traced_repeat``)."""
     from repro_torch import ServeEngine
 
-    eng = ServeEngine(cfg, params=draw_on_card(cfg), max_seq=1024,
+    eng = ServeEngine(cfg, params=draw_on_card(cfg, dtype), max_seq=1024,
                       device="cuda")
     tally: dict = {}
     prompts, launches, engine = serve(eng, cfg, (fa, gm),
@@ -920,55 +975,58 @@ def family_engine_phase(fa, gm, cfg, n_new: int):
           f"{cfg.name} prefill made {launches['flash_attention']} "
           f"flash_attention launches, want {n}")
     check(launches["grouped_matmul"] == 0, f"the {cfg.name} path ran K2")
-    check_k1_in_path(fa, cfg, tally)
+    check_k1_in_path(fa, cfg, tally, dtype)
     if n:
         traced_repeat(fa, gm, eng, prompts, n_new, tally)
     for key in ("traced_ms", "event_ms"):
         engine[f"k1_in_path_{key}"] = sum(
             t[key] for (name, _, _), t in tally.items()
             if name == "flash_attention")
-    print(f"{cfg.name} engine: " + json.dumps(engine))
+    print(f"{cfg.name} engine, {dtype}: " + json.dumps(engine))
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return tally, engine
 
 
-def card_vs_cpu(cfg, cut: dict, S: int, n: int = 16) -> None:
+def card_vs_cpu(cfg, cut: dict, S: int, n: int = 16,
+                dtype=torch.float32) -> None:
     """The path on the card against the port's CPU path at full width,
-    cut to ``cut`` (fewer layers, or nothing), on one set of weights drawn
-    from a CPU generator and copied: a 1 x S prompt (an audio model's
-    1 x K x S) and ``n`` greedy tokens."""
+    cut to ``cut`` (fewer layers, or nothing), on one set of weights in
+    ``dtype`` drawn from a CPU generator and copied: a 1 x S prompt (an
+    audio model's 1 x K x S) and ``n`` greedy tokens."""
     from repro_torch import build_model
 
     cfg = cfg.replace(**cut)
     model = build_model(cfg)
     t0 = time.perf_counter()
-    cpu_params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    gpu_params = type(cpu_params)(cfg, device="cuda")
+    cpu_params = model.init(torch.Generator().manual_seed(0), dtype,
+                            device="cpu")
+    gpu_params = type(cpu_params)(cfg, dtype, device="cuda")
     gpu_params.load_state_dict(cpu_params.state_dict())
     n_params = sum(p.numel() for p in cpu_params.parameters())
     print(f"{cfg.name} card vs CPU: {cfg.n_layers} layers, {n_params} params "
-          f"drawn on the CPU and copied: {time.perf_counter() - t0:.1f} s")
+          f"in {dtype} drawn on the CPU and copied: "
+          f"{time.perf_counter() - t0:.1f} s")
     K = (cfg.n_codebooks,) if cfg.family == "audio" else ()
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, *K, S))
     compare_card_cpu(greedy_trace(model, gpu_params, prompt, n, "cuda"),
-                     greedy_trace(model, cpu_params, prompt, n, "cpu"), n)
+                     greedy_trace(model, cpu_params, prompt, n, "cpu"), n,
+                     dtype)
     del gpu_params
     torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
-def router_gaps(gaps: list):
-    """While active, every moe layer appends the smallest gap between
-    its tokens' k-th and (k+1)-th router probabilities to ``gaps``: a
-    gap near 0 is a top-k choice that rounding can flip."""
-    from repro_torch.models import moe, transformer
+def each_moe_call(record):
+    """While active, every moe layer first calls ``record(p, cfg, x)``
+    with its parameters, config and input."""
+    from repro_torch.models import transformer
 
     real = transformer.moe_apply
 
     def recording(p, cfg, x, *args, **kw):
-        gaps.append(moe.topk_gap(p, cfg, x))
+        record(p, cfg, x)
         return real(p, cfg, x, *args, **kw)
 
     transformer.moe_apply = recording
@@ -978,37 +1036,82 @@ def router_gaps(gaps: list):
         transformer.moe_apply = real
 
 
-def moe_card_vs_cpu(cfg, n_layers: int = 2, n: int = 16) -> None:
+def relative_router_gaps(p, cfg, x) -> torch.Tensor:
+    """For each token of x (B, S, d), the gap between its k-th and
+    (k+1)-th router probabilities relative to the k-th: a gap within
+    bf16's rounding of the router logits is a top-k choice that can
+    flip. (``moe.topk_gap`` gives the smallest absolute gap.)"""
+    from repro_torch.models import moe
+
+    k = cfg.n_experts_per_tok
+    top = moe.router_probs(p.router, moe._grouped(x)).topk(k + 1,
+                                                           dim=-1).values
+    return ((top[..., k - 1] - top[..., k]) / top[..., k - 1]).reshape(
+        x.shape[:2]).float()
+
+
+def moe_card_vs_cpu(cfg, n_layers: int = 2, n: int = 16,
+                    dtype=torch.float32) -> None:
     """The moe path on the card against the port's CPU path at full
-    width and ``n_layers`` layers, on one set of weights drawn from a
-    CPU generator. A 1 x 256 prompt (Tg = 256 > 128, so tokens can drop)
-    and ``n`` greedy tokens; a prompt whose CPU routing has a top-k gap
-    below 1e-6 is swapped for the next seed (at most 3)."""
+    width and ``n_layers`` layers, on one set of weights in ``dtype``
+    drawn from a CPU generator. A 1 x 256 prompt (Tg = 256 > 128, so
+    tokens can drop) and ``n`` greedy tokens. A prompt whose CPU routing
+    has a near-tie that can flip a choice is swapped for the next seed
+    (at most 3): fp32, a top-k gap below 1e-6 anywhere; bf16, a gap below
+    ``BF16_ROUTER_REL`` of the k-th probability where a flip reaches the
+    compared logits directly: in the last layer, at the last prompt
+    position and every decode step. The near-ties elsewhere (earlier
+    layers, other positions: their effect passes through the layers
+    after them) are counted and printed."""
     from repro_torch import build_model
-    from repro_torch.models import transformer
+    from repro_torch.models import moe, transformer
 
     cfg = cfg.replace(n_layers=n_layers)
     model = build_model(cfg)
     t0 = time.perf_counter()
-    cpu_params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    gpu_params = transformer.Transformer(cfg, device="cuda")
+    cpu_params = model.init(torch.Generator().manual_seed(0), dtype,
+                            device="cpu")
+    gpu_params = transformer.Transformer(cfg, dtype, device="cuda")
     gpu_params.load_state_dict(cpu_params.state_dict())
     n_params = sum(p.numel() for p in cpu_params.parameters())
-    print(f"moe card vs CPU: {n_layers} layers, {n_params} params drawn on "
-          f"the CPU and copied: {time.perf_counter() - t0:.1f} s")
+    print(f"moe card vs CPU: {n_layers} layers, {n_params} params in {dtype} "
+          f"drawn on the CPU and copied: {time.perf_counter() - t0:.1f} s")
     for seed in range(3):
         prompt = np.random.default_rng(seed).integers(
             0, cfg.vocab_size, (1, 256))
-        gaps: list = []
-        with router_gaps(gaps):
+        if dtype == torch.float32:
+            gaps: list = []
+            with each_moe_call(lambda p, c, x: gaps.append(
+                    moe.topk_gap(p, c, x))):
+                c_trace = greedy_trace(model, cpu_params, prompt, n, "cpu")
+            print(f"prompt seed {seed}: smallest CPU router gap between "
+                  f"choices k and k+1 over {len(gaps)} layer calls: "
+                  f"{min(gaps):.3e}")
+            if min(gaps) >= 1e-6:
+                break
+            continue
+        calls: list = []
+        with each_moe_call(lambda p, c, x: calls.append(
+                relative_router_gaps(p, c, x))):
             c_trace = greedy_trace(model, cpu_params, prompt, n, "cpu")
-        print(f"prompt seed {seed}: smallest CPU router gap between choices "
-              f"k and k+1 over {len(gaps)} layer calls: {min(gaps):.3e}")
-        if min(gaps) >= 1e-6:
+        # calls run layer by layer, one forward after another
+        last = [c[:, -1] for i, c in enumerate(calls)
+                if i % n_layers == n_layers - 1]
+        compared = torch.cat(last)
+        ties = sum(int((c < BF16_ROUTER_REL).sum()) for c in calls)
+        ties_compared = int((compared < BF16_ROUTER_REL).sum())
+        print(f"prompt seed {seed}: CPU router gaps between choices k and "
+              f"k+1 relative to the k-th, over {len(calls)} layer calls: "
+              f"smallest {min(float(c.min()) for c in calls):.3e}; at the "
+              f"{compared.numel()} compared positions of the last layer "
+              f"smallest {float(compared.min()):.3e}, {ties_compared} below "
+              f"{BF16_ROUTER_REL:g}; {ties - ties_compared} near-ties "
+              f"elsewhere")
+        if ties_compared == 0:
             break
     print(f"moe card vs CPU holds prompt seed {seed}")
     compare_card_cpu(greedy_trace(model, gpu_params, prompt, n, "cuda"),
-                     c_trace, n)
+                     c_trace, n, dtype)
     del gpu_params
     torch.cuda.empty_cache()
 
@@ -1093,59 +1196,37 @@ def k1_row(fa, ref, model, shape, dtype, tally=None):
     return row
 
 
-def timing_phase(fa, gm, ref, tallies, cfgs):
-    """The ``kernels`` line: K1 at the prefill shape of every served model
-    that has attention (qwen2-0.5b, qwen2-moe-a2.7b, zamba2-7b,
-    internvl2-1b, musicgen-large) and K2 at each of the moe path's four
-    shapes, fp32 (the main paths' dtype), each with its launches on its
-    model's main path and its device time per launch in that run, from
-    the trace of its repeat (``in_path_ms``; ``in_path_event_ms`` from
-    CUDA events around each launch of the run). K2's ``ms``,
-    ``plain_ms``, bounds and ``library_ms`` are the dense product (no
-    rows), like for like with ``torch.bmm``; its rows name the variant
-    that ran. A K2 row also
-    carries, per launch of the main run: its time alone with the run's
-    rows (``in_path_alone_ms``), the least time those rows need on each
-    route (``in_path_bound_*``), and the mean active experts and rows.
-    K1 in bf16 (no launch on the main path) is printed on lines of its
-    own."""
-    moe_cfg = cfgs["qwen2-moe-a2.7b"]
-    moe_tally = tallies[moe_cfg.name]
-    kernels = [k1_row(fa, ref, name, prefill_attention(cfgs[name]),
-                      torch.float32, tallies[name])
-               for name in ("qwen2-0.5b", moe_cfg.name, "zamba2-7b",
-                            "internvl2-1b", "musicgen-large")]
-    for name in ("qwen2-0.5b", moe_cfg.name, "zamba2-7b"):
-        print("kernel timing, bf16 (not the main path's dtype): "
-              + json.dumps(k1_row(fa, ref, name, prefill_attention(cfgs[name]),
-                                  torch.bfloat16)))
-
-    for (kernel, phase, shape), t in moe_tally.items():
+def k2_rows(gm, ref, cfg, tally: dict, dtype) -> list:
+    """K2's rows of the ``kernels`` line at each of the moe path's four
+    shapes in ``dtype``, from that run's ``tally`` (see ``timing_phase``)."""
+    rows_out = []
+    for (kernel, phase, shape), t in tally.items():
         if kernel != "grouped_matmul":
             continue
         E, C, d, f = shape
         n, rows = t["launches"], t["rows"]
-        x, w = gmm_inputs(E, C, d, f, torch.float32, seed=98)
-        err = (gm.grouped_matmul(x, w)
-               - ref.grouped_matmul_ref(x, w)).abs().max().item()
+        x, w = gmm_inputs(E, C, d, f, dtype, seed=98)
+        err = (gm.grouped_matmul(x, w).float()
+               - ref.grouped_matmul_ref(x, w).float()).abs().max().item()
         before = dict(gm.route_launches)
         gm.grouped_matmul(x, w)
         variant = next(k for k, v in gm.route_launches.items()
                        if v != before[k])
         # the main run's rows: each launch's bounds, and K2 alone cycling
         # through the first 50 launches' rows
-        per_launch = [gmm_rows_bound(r, C, d, f, torch.float32) for r in rows]
+        per_launch = [gmm_rows_bound(r, C, d, f, dtype) for r in rows]
         some = itertools.cycle([r.cuda() for r in rows[:50]])
         row = {
             "name": "grouped_matmul",
-            "model": moe_cfg.name,
+            "model": cfg.name,
             "phase": phase,
             "shape": [E, C, d, f],
-            "dtype": "float32",
+            "dtype": str(dtype).replace("torch.", ""),
             "route": "cuda",
             "variant": variant,
-            "products": ("3xTF32 wgmma" if variant == "gmm_wgmma"
-                         else "fp32 FMA"),
+            "products": {"gmm_wgmma": "3xTF32 wgmma",
+                         "gmm_wgmma_bf16": "bf16 wgmma"}.get(variant,
+                                                            "fp32 FMA"),
             "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
             "replaces": "src/repro/kernels/moe_gmm.py:21",
             "launches": n,
@@ -1160,16 +1241,57 @@ def timing_phase(fa, gm, ref, tallies, cfgs):
             "device_ms": device_ms(lambda: gm.grouped_matmul(x, w),
                                    TRACED_KERNELS["grouped_matmul"]),
             "plain_ms": cuda_ms(lambda: ref.grouped_matmul_ref(x, w)),
-            **gmm_bound(E, C, d, f, torch.float32),
+            **gmm_bound(E, C, d, f, dtype),
             "library_ms": cuda_ms(lambda: torch.bmm(x, w)),
         }
+        if dtype == torch.bfloat16:
+            # torch.bmm's bf16 kernels may reduce split sums in bf16
+            row["library_bf16_reduced_precision_reduction"] = \
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
         for key in ("bound_ms", "bound_fp32_ms", "bound_3xtf32_ms"):
-            row[f"in_path_{key}"] = sum(b[key] for b in per_launch) / n
+            if key in per_launch[0]:
+                row[f"in_path_{key}"] = sum(b[key] for b in per_launch) / n
         for key in ("bound_by", "bound_fp32_by", "bound_3xtf32_by"):
-            row[f"in_path_{key}"] = max(
-                ("bytes", "operations"),
-                key=[b[key] for b in per_launch].count)
-        kernels.append(row)
+            if key in per_launch[0]:
+                row[f"in_path_{key}"] = max(
+                    ("bytes", "operations"),
+                    key=[b[key] for b in per_launch].count)
+        rows_out.append(row)
+    return rows_out
+
+
+def timing_phase(fa, gm, ref, tallies, cfgs):
+    """The ``kernels`` line: K1 at the prefill shape of every served model
+    that has attention (qwen2-0.5b, qwen2-moe-a2.7b, zamba2-7b,
+    internvl2-1b, musicgen-large) in fp32 and of the two served in bf16
+    (qwen2-0.5b, qwen2-moe-a2.7b), and K2 at each of the moe path's four
+    shapes in fp32 and in bf16, each with its launches on its model's
+    main path in its dtype (``tallies[(name, dtype)]``) and its device
+    time per launch in that run, from the trace of its repeat
+    (``in_path_ms``; ``in_path_event_ms`` from CUDA events around each
+    launch of the run). K2's ``ms``, ``plain_ms``, bounds and
+    ``library_ms`` are the dense product (no rows), like for like with
+    ``torch.bmm``; its rows name the variant that ran. A K2 row also
+    carries, per launch of the main run: its time alone with the run's
+    rows (``in_path_alone_ms``), the least time those rows need on each
+    route (``in_path_bound_*``), and the mean active experts and rows.
+    K1 in bf16 at Zamba2's shape (no bf16 main path) is printed on a line
+    of its own."""
+    moe_cfg = cfgs["qwen2-moe-a2.7b"]
+    f32, bf16 = torch.float32, torch.bfloat16
+    kernels = [k1_row(fa, ref, name, prefill_attention(cfgs[name]), f32,
+                      tallies[(name, f32)])
+               for name in ("qwen2-0.5b", moe_cfg.name, "zamba2-7b",
+                            "internvl2-1b", "musicgen-large")]
+    kernels += [k1_row(fa, ref, name, prefill_attention(cfgs[name]), bf16,
+                       tallies[(name, bf16)])
+                for name in ("qwen2-0.5b", moe_cfg.name)]
+    print("kernel timing, bf16 (no bf16 main path at this shape): "
+          + json.dumps(k1_row(fa, ref, "zamba2-7b",
+                              prefill_attention(cfgs["zamba2-7b"]), bf16)))
+    for dtype in (f32, bf16):
+        kernels += k2_rows(gm, ref, moe_cfg, tallies[(moe_cfg.name, dtype)],
+                           dtype)
     return kernels
 
 
@@ -1720,19 +1842,27 @@ def main() -> int:
     moe_cfg, zamba_cfg = cfgs["qwen2-moe-a2.7b"], cfgs["zamba2-7b"]
     kernel_phase(fa, gm, ref, cfgs)
     phase_done("kernels against their plain versions")
+    # tallies and engines by (model, dtype)
     tallies, engines = {}, {}
+    f32, bf16 = torch.float32, torch.bfloat16
     dense_cfg = cfgs["qwen2-0.5b"]
-    tallies[dense_cfg.name], engines[dense_cfg.name] = family_engine_phase(
-        fa, gm, dense_cfg, n_new=64)
-    card_vs_cpu(dense_cfg, {}, S=256)
-    phase_done("dense engine and card vs CPU")
-    tallies[moe_cfg.name], engines[moe_cfg.name] = moe_engine_phase(
-        fa, gm, moe_cfg)
-    phase_done("moe engine")
-    moe_card_vs_cpu(moe_cfg)
-    phase_done("moe card vs CPU")
+    for dtype in (f32, bf16):
+        key = (dense_cfg.name, dtype)
+        tallies[key], engines[key] = family_engine_phase(
+            fa, gm, dense_cfg, n_new=64, dtype=dtype)
+        # fp32 at full depth; bf16 at 2 layers, as the moe model
+        card_vs_cpu(dense_cfg, {} if dtype == f32 else dict(n_layers=2),
+                    S=256, dtype=dtype)
+        phase_done(f"dense engine and card vs CPU, {dtype}")
+    for dtype in (f32, bf16):
+        key = (moe_cfg.name, dtype)
+        tallies[key], engines[key] = moe_engine_phase(fa, gm, moe_cfg, dtype)
+        phase_done(f"moe engine, {dtype}")
+        moe_card_vs_cpu(moe_cfg, dtype=dtype)
+        phase_done(f"moe card vs CPU, {dtype}")
     # zamba2-7b at full width and depth
-    tallies[zamba_cfg.name], engines[zamba_cfg.name] = family_engine_phase(
+    key = (zamba_cfg.name, f32)
+    tallies[key], engines[key] = family_engine_phase(
         fa, gm, zamba_cfg, n_new=64)
     phase_done("zamba2 engine")
     card_vs_cpu(zamba_cfg, dict(n_layers=12), S=300)
@@ -1743,7 +1873,7 @@ def main() -> int:
                       ("musicgen-large", dict(n_layers=2)),
                       ("xlstm-350m", dict(n_layers=2,
                                           xlstm_pattern=("m", "s")))):
-        tallies[arch], engines[arch] = family_engine_phase(
+        tallies[(arch, f32)], engines[(arch, f32)] = family_engine_phase(
             fa, gm, cfgs[arch], n_new=16)
         card_vs_cpu(cfgs[arch], cut, S=256)
         phase_done(f"{arch} engine and card vs CPU")
@@ -1757,29 +1887,33 @@ def main() -> int:
     phase_done("fleet sweep")
     kernels = timing_phase(fa, gm, ref, tallies, cfgs)
     phase_done("timing")
+    dtypes = {"float32": f32, "bfloat16": bf16}
     for row in kernels:
         if row["name"] != "flash_attention":
             continue
-        engine = engines[row["model"]]
+        engine = engines[(row["model"], dtypes[row["dtype"]])]
         ms = row["in_path_ms"] * row["launches"]
-        print(f"{row['model']} prefill time in flash_attention, traced in "
+        print(f"{row['model']} {row['dtype']} prefill time in "
+              f"flash_attention, traced in "
               f"a repeat of the main run: {row['launches']} x "
               f"{row['in_path_ms']:.4f} ms = {ms:.3f} ms of "
               f"{engine['prefill_ms']:.2f} ms "
               f"({100 * ms / engine['prefill_ms']:.1f}%); by CUDA events in "
               f"the run {row['in_path_event_ms']:.4f} ms a launch; time alone "
               f"{row['ms']:.4f} ms")
-    moe_engine = engines[moe_cfg.name]
-    for phase, total in (("prefill", moe_engine["prefill_ms"]),
-                         ("decode", moe_engine["decode_step_ms"] * 64)):
-        ms = moe_engine["k2_in_path_traced_ms"][phase]
-        alone = sum(r["in_path_alone_ms"] * r["launches"] for r in kernels
-                    if r.get("phase") == phase)
-        print(f"moe {phase} time in grouped_matmul, traced in a repeat of "
-              f"the main run: {ms:.3f} ms of {total:.2f} ms "
-              f"({100 * ms / total:.1f}%); by CUDA events in the run "
-              f"{moe_engine['k2_in_path_event_ms'][phase]:.3f} ms; launches x "
-              f"time alone with the run's rows: {alone:.3f} ms")
+    for name, dtype in dtypes.items():
+        moe_engine = engines[(moe_cfg.name, dtype)]
+        for phase, total in (("prefill", moe_engine["prefill_ms"]),
+                             ("decode", moe_engine["decode_step_ms"] * 64)):
+            ms = moe_engine["k2_in_path_traced_ms"][phase]
+            alone = sum(r["in_path_alone_ms"] * r["launches"] for r in kernels
+                        if r.get("phase") == phase and r["dtype"] == name)
+            print(f"moe {name} {phase} time in grouped_matmul, traced in a "
+                  f"repeat of the main run: {ms:.3f} ms of {total:.2f} ms "
+                  f"({100 * ms / total:.1f}%); by CUDA events in the run "
+                  f"{moe_engine['k2_in_path_event_ms'][phase]:.3f} ms; "
+                  f"launches x time alone with the run's rows: "
+                  f"{alone:.3f} ms")
 
     print(name)
     print(json.dumps({"kernels": kernels}))

@@ -32,7 +32,7 @@
 //    by the copies), so any shape with non-zero dimensions is right,
 //    (1, 1, 1, 1) included.
 //
-// Three variants, chosen on the host from the shapes, the type and the
+// Four variants, chosen on the host from the shapes, the type and the
 // pointers alone (repro_grouped_matmul_route; it never reads `rows`):
 //
 //  * gmm_small, C <= 32, bound by bytes (the decode step of
@@ -92,12 +92,47 @@
 //      experts with the most occupied rows launch first. The epilogue
 //      writes each thread's accumulator straight to o (each warp store
 //      fills 32-byte sectors) and 0 at rows past rows[e].
-//  * gmm_large, C > 32 otherwise (bf16, which no main path launches,
-//    and shapes or pointers TMA cannot take): a register-tiled SGEMM on
-//    the CUDA cores. A block of 128 threads owns a 64 x 128 output tile,
-//    each thread an 8 x 8 register tile; w streams through a 3-stage
-//    cp.async ring of 16-deep chunks, x is staged transposed. Row tiles
-//    at or past rows[e] are zero-filled without any load.
+//  * gmm_wgmma_bf16, C > 32 in bf16 with d and f multiples of 8 and
+//    16-byte aligned pointers (the same prefill shapes served in bf16).
+//    Dense, it does 66 GFLOP against 426 MB: bound by bytes, 0.127 ms at
+//    3.35 TB/s against 0.067 ms at the bf16 tensor cores' 989 TFLOP/s;
+//    with the moe path's rows the weights alone (~346 MB) set it. So
+//    the design streams every weight from device memory once and keeps
+//    enough of it in flight, and the products only have to keep up:
+//    - One fp32 accumulator over the whole of d, chained on the tensor
+//      cores (bf16 has no small part to carry, and the truncation of
+//      their fp32 adds stays far below the bf16 rounding of the output),
+//      written once in bf16.
+//    - The operands are swapped as in gmm_wgmma: o^T = w^T x^T, A = w^T
+//      (M = 64 columns of f a consumer warpgroup), B = x^T (N = 32 rows
+//      of C an n-tile). bf16 wgmma could read w MN-major as B of
+//      o = x w, but then its M would be 64 rows of C: an expert's ~80
+//      occupied rows of 192 would take 2 m-tiles of 3 where they take 3
+//      n-tiles of 6 here. And A comes from registers: each consumer
+//      loads its 64 x 64 tile of w^T once a stage from the swizzled
+//      MN-major tile (ldmatrix .trans), so each m64n32k16 product reads
+//      only its 1 KB of x from shared memory; with A in shared memory it
+//      would read 3 KB for 16 cycles of tensor work (24 cycles of
+//      shared-memory bytes: the limit of K1's q k^T at N = 32 keys).
+//    - A block owns B_BM = 128 columns of f (two consumer warpgroups)
+//      and B_NT x B_BN = 192 rows of C. A producer warpgroup gives its
+//      registers to the consumers (setmaxnreg); its first thread keeps
+//      B_STAGES stages of 64-deep tiles (one 128-byte swizzle row of
+//      bf16) in flight with TMA copies, mbarriers "full" and "empty"
+//      between the roles. A consumer issues a stage's products as one
+//      wgmma group and waits for it before it releases the stage; the
+//      count of n-tiles is fixed at compile time (with_const), as in
+//      gmm_wgmma.
+//    - Rows: as in gmm_wgmma, n-tiles wholly at or past rows[e] are
+//      neither copied nor computed, and the experts with the most rows
+//      launch first.
+//  * gmm_large, C > 32 where TMA cannot copy (d or f not a multiple of
+//    16 bytes' worth of elements, or a pointer off 16-byte alignment; no
+//    main path launches it): a register-tiled SGEMM on the CUDA cores.
+//    A block of 128 threads owns a 64 x 128 output tile, each thread an
+//    8 x 8 register tile; w streams through a 3-stage cp.async ring of
+//    16-deep chunks, x is staged transposed. Row tiles at or past rows[e]
+//    are zero-filled without any load.
 //
 // The vector copies of gmm_small and gmm_large need d and f to be
 // multiples of 16 bytes' worth of elements and 16-byte aligned pointers;
@@ -483,6 +518,27 @@ __global__ void __launch_bounds__(L_THREADS, L_MIN_BLOCKS)
   }
 }
 
+// The expert of this block of a tensor-core variant (all threads call
+// it). Blocks launch in order of blockIdx.z, and with rows an expert's
+// blocks take time in proportion to its occupied n-tiles: block z takes
+// the expert with the z-th most occupied rows (ties by index), so the
+// longest run first and the shortest fill the last wave.
+__device__ int ranked_expert(const int* rows, int C) {
+  __shared__ int expert;
+  if (rows == nullptr) return blockIdx.z;
+  for (int i = threadIdx.x; i < (int)gridDim.z; i += blockDim.x) {
+    const int ni = occupied(rows, i, C);
+    int rank = 0;
+    for (int j = 0; j < (int)gridDim.z; ++j) {
+      const int nj = occupied(rows, j, C);
+      rank += nj > ni || (nj == ni && j < i);
+    }
+    if (rank == (int)blockIdx.z) expert = i;
+  }
+  __syncthreads();
+  return expert;
+}
+
 // ---------------------------------------------------------------------
 // C > SMALL_C, fp32, d and f multiples of 4, 16-byte aligned pointers:
 // 3xTF32 on wgmma with the operands swapped (o^T = w^T x^T), TMA copies
@@ -526,24 +582,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   uint64_t* ready = full + W_STAGES;
   uint64_t* empty = ready + W_STAGES;
 
-  // Blocks launch in order of blockIdx.z, and with rows an expert's
-  // blocks take time in proportion to its occupied n-tiles: block z
-  // takes the expert with the z-th most occupied rows (ties by index),
-  // so the longest run first and the shortest fill the last wave.
-  __shared__ int expert;
-  if (rows != nullptr) {
-    for (int i = threadIdx.x; i < (int)gridDim.z; i += blockDim.x) {
-      const int ni = occupied(rows, i, C);
-      int rank = 0;
-      for (int j = 0; j < (int)gridDim.z; ++j) {
-        const int nj = occupied(rows, j, C);
-        rank += nj > ni || (nj == ni && j < i);
-      }
-      if (rank == (int)blockIdx.z) expert = i;
-    }
-    __syncthreads();
-  }
-  const int e = rows != nullptr ? expert : blockIdx.z;
+  const int e = ranked_expert(rows, C);
   const int f0 = blockIdx.x * W_BM, c0 = blockIdx.y * (W_NT * W_BN);
   const int n = occupied(rows, e, C);
   float* oe = o + (int64_t)e * C * F;
@@ -706,18 +745,20 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         }
 }
 
-// The tensor map of a contiguous fp32 (n2, n1, n0) array, n0 innermost,
-// in boxes of (1, b1, b0) with the 128-byte swizzle; boxes past an edge
-// read 0.
+// The tensor map of a contiguous fp32 or bf16 (n2, n1, n0) array, n0
+// innermost, in boxes of (1, b1, b0) with the 128-byte swizzle; boxes
+// past an edge read 0.
 bool tensor_map(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
-                uint64_t n2, uint32_t b0, uint32_t b1) {
+                uint64_t n2, uint32_t b0, uint32_t b1, bool bf16 = false) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
+  const uint64_t elt = bf16 ? 2 : 4;
   const cuuint64_t dims[3] = {n0, n1, n2};
-  const cuuint64_t strides[2] = {n0 * 4, n0 * n1 * 4};  // bytes, dims 1, 2
+  const cuuint64_t strides[2] = {n0 * elt, n0 * n1 * elt};  // bytes
   const cuuint32_t box[3] = {b0, b1, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                 const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -742,7 +783,188 @@ cudaError_t launch_wgmma(const void* x, const void* w, void* o,
   return cudaGetLastError();
 }
 
-enum Route { ROUTE_SMALL = 0, ROUTE_WGMMA = 1, ROUTE_LARGE = 2 };
+// ---------------------------------------------------------------------
+// C > SMALL_C, bf16, d and f multiples of 8, 16-byte aligned pointers:
+// bf16 wgmma with the operands swapped (o^T = w^T x^T), A = w^T loaded
+// into registers, TMA copies into a ring of stages, a producer warpgroup
+// and B_CONSUMERS consumer warpgroups. See the note at the top.
+constexpr int B_CONSUMERS = 2;   // consumer warpgroups, 64 columns of f each
+constexpr int B_BM = 64 * B_CONSUMERS;  // columns of f per block (wgmma M)
+constexpr int B_BN = 32;         // rows of C per n-tile (wgmma N)
+constexpr int B_NT = 6;          // n-tiles per block: B_NT * B_BN rows of C
+constexpr int B_BK = 64;         // depth per stage: one 128-byte swizzle row
+constexpr int B_STAGES = 5;      // stages in the ring
+constexpr int B_THREADS = 128 * (B_CONSUMERS + 1);
+constexpr int B_PRODUCER_REGS = 40;
+constexpr int B_CONSUMER_REGS = 232;
+constexpr int B_BOX = 64;        // columns of f per TMA box of w (128 bytes)
+constexpr int B_TILE_W = B_BK * B_BM;         // bf16 values of w in a stage
+constexpr int B_TILE_X = B_NT * B_BN * B_BK;  // bf16 values of x in a stage
+constexpr int B_STAGE = B_TILE_W + B_TILE_X;
+constexpr int B_SMEM = B_STAGES * B_STAGE * 2 + 2 * B_STAGES * 8 + 1024;
+static_assert(B_BOX == 64 && B_BM == B_CONSUMERS * B_BOX && B_BK % 16 == 0 &&
+                  B_BN == 32 && B_BN * B_BK * 2 % 1024 == 0,
+              "one 128-byte swizzled box of w a consumer; wgmma N 32");
+static_assert(B_SMEM <= 232448, "the ring fits in an SM's shared memory");
+static_assert(128 * (B_PRODUCER_REGS + B_CONSUMERS * B_CONSUMER_REGS) <=
+                  65536 && B_CONSUMER_REGS % 8 == 0,
+              "the warpgroups' registers fit in the SM's 64 K");
+
+__global__ void __launch_bounds__(B_THREADS, 1)
+    gmm_wgmma_bf16(const __grid_constant__ CUtensorMap x_map,
+                   const __grid_constant__ CUtensorMap w_map,
+                   __nv_bfloat16* __restrict__ o,
+                   const int* __restrict__ rows, int C, int D, int F) {
+  extern __shared__ unsigned char bsmem[];
+  // 1024-byte alignment for the swizzled tiles: [stage][w box 0 | w box 1
+  // | x n-tiles]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(bsmem) + 1023) & ~uintptr_t(1023));
+  // full: the stage's copies landed; empty: both consumers are done with it
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + B_STAGES * B_STAGE * 2);
+  uint64_t* empty = full + B_STAGES;
+
+  const int e = ranked_expert(rows, C);
+  const int f0 = blockIdx.x * B_BM, c0 = blockIdx.y * (B_NT * B_BN);
+  const int n = occupied(rows, e, C);
+  __nv_bfloat16* oe = o + (int64_t)e * C * F;
+  if (c0 >= n) {  // no occupied row: no load at all
+    zero_rows(oe, c0, min(c0 + B_NT * B_BN, C), f0, B_BM, F);
+    return;
+  }
+  // n-tiles holding an occupied row; the rest are neither loaded nor
+  // computed
+  const int live = min(B_NT, (n - c0 + B_BN - 1) / B_BN);
+  const int nk = (D + B_BK - 1) / B_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < B_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], B_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * B_CONSUMERS) {
+    // The producer warpgroup: its first thread keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        B_PRODUCER_REGS));
+    if (threadIdx.x == 128 * B_CONSUMERS) {
+      const uint32_t bytes = 2u * (B_TILE_W + live * B_BN * B_BK);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % B_STAGES;
+        mbar_wait(&empty[s], ((kt / B_STAGES) & 1) ^ 1);
+        unsigned char* st = ring + s * B_STAGE * 2;
+        mbar_expect_tx(&full[s], bytes);
+        for (int b = 0; b < B_CONSUMERS; ++b)
+          tma_load(st + b * B_BK * B_BOX * 2, &w_map, &full[s],
+                   f0 + b * B_BOX, kt * B_BK, e);
+        for (int t = 0; t < live; ++t)
+          tma_load(st + (B_TILE_W + t * B_BN * B_BK) * 2, &x_map, &full[s],
+                   kt * B_BK, c0 + t * B_BN, e);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      B_CONSUMER_REGS));
+
+  // A consumer warpgroup: columns [f0 + wg * 64, + 64) of f, its box of
+  // w in each stage. Its warp wi holds A rows (f) wi * 16 + g and + 8 (g
+  // = lane / 4). Element (f, k) of a box lies at row k, in 16-byte chunk
+  // (f / 8) ^ (k % 8) of the row (the 128-byte swizzle); for ldmatrix
+  // lane l gives row k = 16 j + 8 (l / 16) + l % 8 of the k-step j and
+  // the chunk of columns wi * 16 + 8 ((l / 8) % 2).
+  const int wg = threadIdx.x / 128, wi = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int lr = lane % 8;
+  const uint32_t a_off =
+      (8 * (lane / 16) + lr) * 128 + ((2 * wi + (lane / 8) % 2) ^ lr) * 16;
+  const int fl = wg * 64 + wi * 16 + g;  // f within the block
+  constexpr int ND = B_BN / 2;  // accumulator floats a thread per n-tile
+  float acc[B_NT][ND];
+#pragma unroll
+  for (int t = 0; t < B_NT; ++t)
+#pragma unroll
+    for (int i = 0; i < ND; ++i) acc[t][i] = 0.f;
+  uint32_t a[B_BK / 16][4];  // the stage's A fragments
+
+  // The stages over LIVE n-tiles, fixed at compile time so that ptxas
+  // sees how many wgmma groups are in flight (else it serializes them):
+  // a stage's products are one group, waited for before the stage is
+  // released.
+  with_const<B_NT>(live, [&](auto n_live) {
+    constexpr int LIVE = decltype(n_live)::value;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % B_STAGES;
+      mbar_wait(&full[s], (kt / B_STAGES) & 1);
+      const unsigned char* st = ring + s * B_STAGE * 2;
+      const uint32_t box = smem_addr(st + wg * B_BK * B_BOX * 2) + a_off;
+#pragma unroll
+      for (int j = 0; j < B_BK / 16; ++j) ldsm_x4_trans(a[j], box + j * 2048);
+#pragma unroll
+      for (int t = 0; t < LIVE; ++t) keep(acc[t]);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < LIVE; ++t) {
+        const uint64_t dx = sw128_desc(st + (B_TILE_W + t * B_BN * B_BK) * 2);
+#pragma unroll
+        for (int j = 0; j < B_BK / 16; ++j)
+          // + 32 bytes of depth a step, inside the swizzled row
+          wgmma_bf16_rs(acc[t], a[j], dx + 2 * j, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int t = 0; t < LIVE; ++t) keep(acc[t]);
+      // this warpgroup is done with the stage
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
+    }
+  });
+
+  // acc[t][4 j + 2 h + b] is o^T at f = fl + 8 h, c = c0 + t B_BN + 8 j +
+  // 2 q + b. Rows of c at or past n are written 0, never the accumulator.
+#pragma unroll
+  for (int t = 0; t < B_NT; ++t)
+#pragma unroll
+    for (int j = 0; j < B_BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int c = c0 + t * B_BN + 8 * j + 2 * q + b;
+          const int f = f0 + fl + 8 * h;
+          if (c < C && f < F)
+            oe[(int64_t)c * F + f] = __float2bfloat16_rn(
+                c < n ? acc[t][4 * j + 2 * h + b] : 0.f);
+        }
+}
+
+cudaError_t launch_wgmma_bf16(const void* x, const void* w, void* o,
+                              const int* rows, int E, int C, int D, int F,
+                              cudaStream_t stream) {
+  CUtensorMap x_map, w_map;
+  if (!tensor_map(&x_map, x, D, C, E, B_BK, B_BN, true) ||
+      !tensor_map(&w_map, w, F, D, E, B_BOX, B_BK, true))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gmm_wgmma_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, B_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((F + B_BM - 1) / B_BM),
+                  (unsigned)((C + B_NT * B_BN - 1) / (B_NT * B_BN)),
+                  (unsigned)E);
+  gmm_wgmma_bf16<<<grid, B_THREADS, B_SMEM, stream>>>(
+      x_map, w_map, static_cast<__nv_bfloat16*>(o), rows, C, D, F);
+  return cudaGetLastError();
+}
+
+enum Route {
+  ROUTE_SMALL = 0,
+  ROUTE_WGMMA = 1,
+  ROUTE_LARGE = 2,
+  ROUTE_WGMMA_BF16 = 3
+};
 
 Route route(const void* x, const void* w, const void* o, int C, int D, int F,
             bool bf16) {
@@ -750,8 +972,9 @@ Route route(const void* x, const void* w, const void* o, int C, int D, int F,
   const bool aligned = (reinterpret_cast<uintptr_t>(x) |
                         reinterpret_cast<uintptr_t>(w) |
                         reinterpret_cast<uintptr_t>(o)) % 16 == 0;
-  return !bf16 && D % 4 == 0 && F % 4 == 0 && aligned ? ROUTE_WGMMA
-                                                     : ROUTE_LARGE;
+  const int v = bf16 ? 8 : 4;  // elements in 16 bytes (TMA's unit)
+  if (D % v != 0 || F % v != 0 || !aligned) return ROUTE_LARGE;
+  return bf16 ? ROUTE_WGMMA_BF16 : ROUTE_WGMMA;
 }
 
 template <typename T, bool VEC>
@@ -807,15 +1030,21 @@ extern "C" int repro_grouped_matmul(const void* x, const void* w, void* o,
       (C + L_BM - 1) / L_BM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route(x, w, o, C, D, F, is_bf16) == ROUTE_WGMMA)
-    return (int)launch_wgmma(x, w, o, rows, E, C, D, F, s);
+  switch (route(x, w, o, C, D, F, is_bf16)) {
+    case ROUTE_WGMMA:
+      return (int)launch_wgmma(x, w, o, rows, E, C, D, F, s);
+    case ROUTE_WGMMA_BF16:
+      return (int)launch_wgmma_bf16(x, w, o, rows, E, C, D, F, s);
+    default:
+      break;
+  }
   return (int)(is_bf16
                    ? launch<__nv_bfloat16>(x, w, o, rows, E, C, D, F, s)
                    : launch<float>(x, w, o, rows, E, C, D, F, s));
 }
 
 // The variant repro_grouped_matmul launches for these arguments: 0
-// gmm_small, 1 gmm_wgmma, 2 gmm_large.
+// gmm_small, 1 gmm_wgmma, 2 gmm_large, 3 gmm_wgmma_bf16.
 extern "C" int repro_grouped_matmul_route(const void* x, const void* w,
                                           const void* o, int C, int D, int F,
                                           int is_bf16) {

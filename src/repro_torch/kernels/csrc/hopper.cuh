@@ -374,6 +374,42 @@ __device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[ND],
   }
 }
 
+// d (m64 x nN, fp32) = (scale_d ? d : 0) + a b for a 64 x 16 bf16 A in
+// registers (the m16n8k16 layout) and a 16 x N K-major bf16 B in shared
+// memory; N = 2 ND.
+template <int ND>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[ND],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  static_assert(ND == 16, "wgmma N 32");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// Four 8 x 8 matrices of 16-bit values from shared memory, transposed:
+// lane i gives the address of row i % 8 of matrix i / 8 (16 bytes), and
+// r[m] of lane t holds column t / 4, rows 2 (t % 4) and + 1, of matrix
+// m (the lower row in the low half). From an MN-major tile (rows of K,
+// MN contiguous) this gives wgmma's A fragment in registers.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
 // x rounded to tf32 (10-bit mantissa, to nearest, ties away from zero),
 // on the bits.
 __device__ __forceinline__ uint32_t tf32_bits(float x) {

@@ -20,9 +20,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 launches = 0
 # The same launches by the kernel variant that ran (see the note in
 # csrc/grouped_matmul.cu): gmm_small (C <= 32), gmm_wgmma (C > 32, fp32,
-# 3xTF32 on the tensor cores), gmm_large (C > 32 otherwise, on the CUDA
-# cores); callers reset them to 0 with ``launches``.
-ROUTES = ("gmm_small", "gmm_wgmma", "gmm_large")
+# 3xTF32 on the tensor cores), gmm_large (C > 32 where TMA cannot copy,
+# on the CUDA cores), gmm_wgmma_bf16 (C > 32, bf16, on the tensor
+# cores); callers reset them to 0 with ``launches``. The index is the
+# kernel's route number.
+ROUTES = ("gmm_small", "gmm_wgmma", "gmm_large", "gmm_wgmma_bf16")
 route_launches = dict.fromkeys(ROUTES, 0)
 
 

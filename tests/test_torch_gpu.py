@@ -404,19 +404,56 @@ def test_grouped_matmul_prefill_runs_3xtf32_wgmma(hopper, shape, case):
         torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("case", ["f_off", "d_off", "bf16", "unaligned"])
+@pytest.mark.parametrize("case", ["dense", "decode", "ragged", "zero",
+                                  "full", "nan"])
+@pytest.mark.parametrize("shape", PREFILL_SHAPES)
+def test_grouped_matmul_prefill_runs_bf16_wgmma(hopper, shape, case):
+    """The moe prefill's two K2 shapes at full width in bf16 go through
+    the bf16 tensor-core variant (gmm_wgmma_bf16) and hold 2e-2 against
+    the plain version: dense, with rows "decode" (15 experts of 1-4
+    rows: one live n-tile), "ragged", "zero" and "full", and with NaN in
+    x past rows[e] and in the weights of experts with no row, which reach
+    no output. Rows past rows[e] come out exactly 0."""
+    E, C, d, f = shape
+    x, w = _gmm_inputs(shape, torch.bfloat16, seed=24)
+    rows = None
+    if case in ("decode", "ragged", "zero", "full"):
+        rows = _rows(case, E, C, seed=24)
+    elif case == "nan":
+        rows = _rows("ragged", E, C, seed=25)
+    live = torch.ones(E, C, dtype=torch.bool, device="cuda")
+    if rows is not None:
+        live = torch.arange(C, device="cuda") < rows[:, None]
+        x = torch.where(live[..., None], x, 0)
+    want = grouped_matmul_ref(x, w, rows)
+    if case == "nan":
+        x = torch.where(live[..., None], x, float("nan"))
+        w[rows == 0] = float("nan")
+    out, routes = _routes_of(lambda: gm.grouped_matmul(x, w, rows))
+    assert routes == {"gmm_wgmma_bf16": 1}
+    assert out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all()) and not out[~live].any()
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("case", ["f_off", "d_off", "bf16", "unaligned",
+                                  "bf16_unaligned"])
 def test_grouped_matmul_takes_cuda_cores_where_tma_cannot(hopper, case):
     """What TMA cannot copy takes the CUDA-core variant (gmm_large), right
-    all the same: f or d not a multiple of 4 fp32 elements, an x whose
-    pointer is 4 bytes past 16-byte alignment; and bf16, which no main
-    path launches."""
+    all the same: f or d not a multiple of 16 bytes' worth of elements
+    (4 fp32, 8 bf16: "bf16" has an f of 132, which fp32 would copy), or
+    an x whose pointer is 4 bytes past 16-byte alignment."""
     shape, dtype = {"f_off": ((6, 100, 300, 130), torch.float32),
                     "d_off": ((6, 100, 302, 128), torch.float32),
-                    "bf16": ((60, 192, 2048, 1408), torch.bfloat16),
-                    "unaligned": ((4, 64, 256, 128), torch.float32)}[case]
+                    "bf16": ((6, 100, 304, 132), torch.bfloat16),
+                    "unaligned": ((4, 64, 256, 128), torch.float32),
+                    "bf16_unaligned": ((4, 64, 256, 128), torch.bfloat16)
+                    }[case]
     x, w = _gmm_inputs(shape, dtype)
-    if case == "unaligned":
-        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(shape[:3])
+    if case.endswith("unaligned"):
+        pad = 4 // x.element_size()
+        x = torch.cat([x.new_zeros(pad), x.flatten()])[pad:].view(shape[:3])
     out, routes = _routes_of(lambda: gm.grouped_matmul(x, w))
     assert routes == {"gmm_large": 1}
     tol = _tol(dtype)

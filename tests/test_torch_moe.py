@@ -130,8 +130,10 @@ def test_grouped_matmul_variant_names_follow_the_source():
     enum = re.search(r"enum Route \{([^}]*)\}", src)[1]
     values = {name.strip(): int(v) for name, v in
               (item.split("=") for item in enum.split(","))}
-    assert values == {"ROUTE_SMALL": 0, "ROUTE_WGMMA": 1, "ROUTE_LARGE": 2}
-    assert gm.ROUTES == ("gmm_small", "gmm_wgmma", "gmm_large")
+    assert values == {"ROUTE_SMALL": 0, "ROUTE_WGMMA": 1, "ROUTE_LARGE": 2,
+                      "ROUTE_WGMMA_BF16": 3}
+    assert gm.ROUTES == ("gmm_small", "gmm_wgmma", "gmm_large",
+                         "gmm_wgmma_bf16")
     assert all(f" {name}(" in src for name in gm.ROUTES)   # the kernels
     assert "repro_grouped_matmul_route" in _build.SIGNATURES["grouped_matmul"]
     _, (x, w) = _gmm_inputs((2, 64, 16, 8), "float32")

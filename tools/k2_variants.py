@@ -3,20 +3,26 @@
 
 Run from the repository root on a machine with the card and ``nvcc``:
 
-    python3 tools/k2_variants.py [--only NAME ...] [--also LABEL=PATH ...]
+    python3 tools/k2_variants.py [--dtype bfloat16] [--only NAME ...]
+                                 [--also LABEL=PATH ...]
 
 A variant is ``src/repro_torch/kernels/csrc/grouped_matmul.cu`` with
 some of its ``constexpr int NAME = value;`` tile constants replaced: the
-prefill variant's (``gmm_wgmma``) n-tile, chunk depth and stages, the
-decode variant's (``gmm_small``) tiles. Every variant is built (one
-``nvcc`` each, all at once, into ``build/grouped_matmul_variants/``),
-launched through the port's own wrapper, held against the plain version
-at 2e-5 (its distance to the product computed in float64 printed
-beside), and timed with CUDA events at the qwen2-moe-a2.7b serving
-shapes, densely and with ``rows`` like the moe path's, in two rounds in
-opposite orders; ``torch.bmm`` is timed beside the dense cases. The
-prefill shapes also run with x scaled by 8, held to the product in
-float64 at 2e-5. ``--only`` keeps some of the variants below, and
+fp32 prefill variant's (``gmm_wgmma``) n-tile, chunk depth and stages,
+the bf16 one's (``gmm_wgmma_bf16``) stages and registers, the decode
+variant's (``gmm_small``) tiles. Every variant is built (one ``nvcc``
+each, all at once, into ``build/grouped_matmul_variants/``), launched
+through the port's own wrapper, held against the plain version at 2e-5
+in fp32 (its distance to the product computed in float64 printed
+beside) or 2e-2 in bf16, and timed with CUDA events at the
+qwen2-moe-a2.7b serving shapes, densely and with ``rows`` like the moe
+path's, in two rounds in opposite orders; ``torch.bmm`` is timed beside
+the dense cases (in bf16 with ``allow_bf16_reduced_precision_reduction``
+printed). In fp32 the prefill shapes also run with x scaled by 8, held
+to the product in float64 at 2e-5. Each case's line names the variant
+each source ran (an earlier source without the bf16 tensor-core variant
+runs bf16 on ``gmm_large``). ``--only`` keeps some of the variants
+below, and
 ``--also`` adds another source with the same C interface as a variant
 of its own (an earlier commit's kernel unpacked with ``git archive``).
 Prints the card's name and power limit, ``ptxas`` registers, spills and
@@ -45,6 +51,13 @@ VARIANTS = {
     "W_CONSUMER_REGS=240,W_PRODUCER_REGS=24": {"W_CONSUMER_REGS": 240,
                                                "W_PRODUCER_REGS": 24},
     "S_STAGES=3": {"S_STAGES": 3},
+    "B_STAGES=3": {"B_STAGES": 3},
+    "B_STAGES=4": {"B_STAGES": 4},
+    "B_CONSUMER_REGS=240,B_PRODUCER_REGS=24": {"B_CONSUMER_REGS": 240,
+                                               "B_PRODUCER_REGS": 24},
+    "B_CONSUMERS=3,B_STAGES=4": {"B_CONSUMERS": 3, "B_STAGES": 4,
+                                 "B_CONSUMER_REGS": 160,
+                                 "B_PRODUCER_REGS": 24},
 }
 
 
@@ -74,8 +87,15 @@ def main() -> int:
     ap.add_argument("--also", action="append", default=[],
                     metavar="LABEL=PATH",
                     help="another grouped_matmul.cu to time as a variant")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32", help="x's and w's dtype")
     args = ap.parse_args()
+    dtype = getattr(torch, args.dtype)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
     print(kv.card())
+    print(f"dtype {args.dtype}; torch.bmm's "
+          f"allow_bf16_reduced_precision_reduction = "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     variants = {name: (None, c) for name, c in VARIANTS.items()
                 if not args.only or name in args.only}
     for spec in args.also:
@@ -93,9 +113,11 @@ def main() -> int:
              ((60, 32, 1408, 2048), "dense", 1),
              ((60, 32, 2048, 1408), "decode", 1),
              ((60, 32, 1408, 2048), "decode", 1)]
+    if dtype != torch.float32:
+        cases = [c for c in cases if c[2] == 1]
     for (E, C, d, f), kind, scale in cases:
-        x = torch.randn((E, C, d), device="cuda") * scale
-        w = torch.randn((E, d, f), device="cuda") / math.sqrt(d)
+        x = (torch.randn((E, C, d), device="cuda") * scale).to(dtype)
+        w = (torch.randn((E, d, f), device="cuda") / math.sqrt(d)).to(dtype)
         rows = case_rows(kind, E, C, g)
         if rows is not None:
             live = torch.arange(C, device="cuda") < rows[:, None]
@@ -106,25 +128,29 @@ def main() -> int:
             exact = torch.where(live[..., None], exact, 0)
         held = want if scale == 1 else exact
         times = {name: [] for name in libs}
-        errors, errors64 = {}, {}
+        errors, errors64, ran = {}, {}, {}
         for order in (list(libs), list(libs)[::-1]):
             for name in order:
                 with kv.use("grouped_matmul", libs[name]):
+                    before = dict(gm.route_launches)
                     try:
                         out = gm.grouped_matmul(x, w, rows)
                     except RuntimeError as err:   # a refused launch
                         errors[name] = f"FAIL {err}"
                         continue
-                    errors[name] = (out - want).abs().max().item()
+                    ran[name] = [k for k, n in gm.route_launches.items()
+                                 if n != before[k]]
+                    errors[name] = (out.float() - want.float()
+                                    ).abs().max().item()
                     errors64[name] = (out.double() - exact).abs().max().item()
                     if not torch.allclose(out.double(), held.double(),
-                                          rtol=2e-5, atol=2e-5):
+                                          rtol=tol, atol=tol):
                         errors[name] = f"FAIL {errors[name]}"
                     times[name].append(
                         kv.cuda_ms(lambda: gm.grouped_matmul(x, w, rows)))
-        line = {"shape": [E, C, d, f], "rows": kind, "x_scale": scale,
-                "ms": times, "max_abs_err": errors,
-                "max_abs_err_float64": errors64,
+        line = {"shape": [E, C, d, f], "dtype": args.dtype, "rows": kind,
+                "x_scale": scale, "ms": times, "variant": ran,
+                "max_abs_err": errors, "max_abs_err_float64": errors64,
                 "plain_max_abs_err_float64": (
                     want.double() - exact).abs().max().item()}
         if rows is None:
