@@ -19,10 +19,11 @@ Run from the repository root, with nothing else on the command line:
    passes them, at the prefill shapes also with NaN past ``rows`` and
    with x scaled by 8, every prefill case also held to the product in
    float64, and each case's variant (K1: flash_wgmma in fp32 or bf16;
-   K2: gmm_small, gmm_wgmma, gmm_wgmma_bf16 or gmm_large) checked. The
-   build fails the run if ``ptxas`` spills in flash_wgmma, gmm_wgmma or
-   gmm_wgmma_bf16, and prints any line of ptxas's about serialized wgmma
-   (C7514).
+   K2: gmm_small, gmm_wgmma, gmm_wgmma_bf16, gmm_decode_bf16 or
+   gmm_large) checked. The build fails the run if ``ptxas`` spills in
+   flash_wgmma, gmm_wgmma, gmm_wgmma_bf16 or gmm_decode_bf16, or
+   serializes gmm_decode_bf16's wgmma (C7514), and prints any line of
+   ptxas's about serialized wgmma.
 3. Dense engine: serves full-width qwen2-0.5b (random weights drawn on
    the card from a seed) through ``ServeEngine.generate``, checks that
    every layer's prefill attention went through K1, on its 3xTF32
@@ -45,7 +46,8 @@ Run from the repository root, with nothing else on the command line:
    of weights drawn on the card in bf16): K1 on flash_wgmma_bf16, every
    prefill K2 launch on gmm_wgmma_bf16, and card against CPU within
    bf16's limits, a prompt with a router near-tie at a compared position
-   of the last layer (``BF16_ROUTER_REL``) swapped for the next seed.
+   of the last layer (``BF16_ROUTER_REL``) swapped for the next seed;
+   every decode K2 launch on gmm_decode_bf16.
 5. Zamba2 engine: serves zamba2-7b at its full
    width and depth in fp32 (81 Mamba2 layers and 13 applications of the
    shared attention block, 6.75 B parameters, 27 GB, drawn on the card)
@@ -525,25 +527,26 @@ def kernel_phase(fa, gm, ref, cfgs) -> None:
               f"flash_attention case {i} ({dtype}) ran {ran}")
 
     # (E, C, d, f): the moe path's prefill gate/up and down and its
-    # decode step, the reference's sweep (ragged edges), one element;
+    # decode step's, the reference's sweep (ragged edges), one element;
     # then f and d that TMA cannot copy (not multiples of 4 fp32)
     E, d, d_e = moe_cfg.n_experts, moe_cfg.d_model, moe_cfg.d_expert
     pre, dec = moe_rows(moe_cfg, 4, 500), moe_rows(moe_cfg, 4, 1)
     cases = [(E, pre, d, d_e), (E, pre, d_e, d), (E, dec, d, d_e),
-             (4, 128, 256, 128), (2, 64, 512, 96), (6, 100, 300, 130),
-             (1, 1, 1, 1), (6, 100, 302, 128)]
+             (E, dec, d_e, d), (4, 128, 256, 128), (2, 64, 512, 96),
+             (6, 100, 300, 130), (1, 1, 1, 1), (6, 100, 302, 128)]
 
     def variant_of(x, w, C, d_, f):
-        """The variant the wrapper picks: gmm_small at C <= 32, where TMA
-        can copy (d and f multiples of 16 bytes) gmm_wgmma in fp32 and
-        gmm_wgmma_bf16 in bf16, else gmm_large."""
-        if C <= 32:
-            return "gmm_small"
+        """The variant the wrapper picks: where TMA can copy (d and f
+        multiples of 16 bytes) gmm_wgmma in fp32 and gmm_wgmma_bf16 in
+        bf16 at C > 32, gmm_decode_bf16 in bf16 at C <= 32; else
+        gmm_small at C <= 32 and gmm_large above."""
         v = 16 // x.element_size()
-        if d_ % v == 0 and f % v == 0:
-            return "gmm_wgmma" if x.dtype == torch.float32 else \
-                "gmm_wgmma_bf16"
-        return "gmm_large"
+        bf16 = x.dtype == torch.bfloat16
+        if d_ % v or f % v:
+            return "gmm_small" if C <= 32 else "gmm_large"
+        if C <= 32:
+            return "gmm_decode_bf16" if bf16 else "gmm_small"
+        return "gmm_wgmma_bf16" if bf16 else "gmm_wgmma"
 
     def run(x, w, rows=None):
         before = dict(gm.route_launches)
@@ -582,6 +585,7 @@ def kernel_phase(fa, gm, ref, cfgs) -> None:
              ((E, dec, d, d_e), "full"), ((E, pre, d, d_e), "full"),
              ((E, pre, d_e, d), "full"),
              ((E, pre, d, d_e), "nan"), ((E, pre, d_e, d), "nan"),
+             ((E, dec, d, d_e), "nan"), ((E, dec, d_e, d), "nan"),
              ((E, pre, d, d_e), "x8"), ((E, pre, d_e, d), "x8"),
              ((4, 128, 256, 128), "ragged"), ((2, 64, 512, 96), "ragged"),
              ((6, 100, 300, 130), "ragged"), ((6, 20, 300, 130), "ragged"),
@@ -741,7 +745,12 @@ TRACED_KERNELS = {"flash_attention": "flash_wgmma",
                   "grouped_matmul": "gmm_"}
 # The tensor-core kernels, whose build fails the run if ptxas spills in
 # them ("gmm_wgmma" names gmm_wgmma_bf16 too).
-TENSOR_CORE = ("flash_wgmma", "gmm_wgmma")
+TENSOR_CORE = ("flash_wgmma", "gmm_wgmma", "gmm_decode_bf16")
+
+
+class TraceIncomplete(RuntimeError):
+    """A torch.profiler trace that kept fewer of a wrapper's kernels than
+    the wrapper launched."""
 
 
 @contextlib.contextmanager
@@ -752,8 +761,9 @@ def in_path(fa, gm, model, tally: dict, trace: bool = False):
     before and just after each launch: on an idle device the start event
     fires before the host has enqueued the kernel, so this counts host
     time too), ``traced_ms`` (with ``trace``: the device time of their
-    kernels, from the records of a torch.profiler trace of the run;
-    else None) and ``rows`` (each K2 launch's ``rows`` stacked, read
+    kernels, from the records of a torch.profiler trace of the run, which
+    starts with ``PAD`` spin kernels, as ``device_ms``'s does, since a
+    trace can lose its first records; else None) and ``rows`` (each K2 launch's ``rows`` stacked, read
     after the run, not during it; None for K1). The phase is "prefill"
     until ``model``'s first ``decode_step`` and "decode" after it; K1's
     shape is (B, Sq, Sk, H, Hkv, hd), K2's (E, C, d, f). The wrappers'
@@ -790,6 +800,8 @@ def in_path(fa, gm, model, tally: dict, trace: bool = False):
         contextlib.nullcontext()
     try:
         with prof:
+            for _ in range(PAD if trace else 0):
+                torch.cuda._sleep(100)
             yield
             torch.cuda.synchronize()
     finally:
@@ -797,6 +809,10 @@ def in_path(fa, gm, model, tally: dict, trace: bool = False):
         del model.decode_step
     torch.cuda.synchronize()
     if trace:
+        pad = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and ("spin" in e.name or "sleep" in e.name))
+        check(pad > 0, f"the trace kept none of its {PAD} spin kernels")
         traced = {name: sorted(
             (e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
@@ -804,8 +820,9 @@ def in_path(fa, gm, model, tally: dict, trace: bool = False):
             for name, part in TRACED_KERNELS.items()}
         for name, kernels in traced.items():
             n = sum(1 for ev in events if ev[0] == name)
-            check(len(kernels) == n, f"the trace holds {len(kernels)} {name} "
-                  f"kernels for {n} launches")
+            if len(kernels) != n:
+                raise TraceIncomplete(f"the trace holds {len(kernels)} "
+                                      f"{name} kernels for {n} launches")
     seen = dict.fromkeys(TRACED_KERNELS, 0)
     rows_by_key: dict = {}
     for name, ph, shape, start, end, rows in events:
@@ -832,10 +849,17 @@ def traced_repeat(fa, gm, eng, prompts, n_new: int, tally: dict) -> None:
     K1 and K2 launches by phase and shape must equal the main run's
     ``tally``, and the device time of their kernels in the trace becomes
     ``tally[key]["traced_ms"]``. The main run itself is not traced: the
-    profiler slows its host-bound decode steps about 2.2 times."""
-    again: dict = {}
-    with in_path(fa, gm, eng.model, again, trace=True):
-        eng.generate(prompts, n_new=n_new)
+    profiler slows its host-bound decode steps about 2.2 times. A trace
+    that lost records (``TraceIncomplete``) is taken once more."""
+    for attempt in (1, 2):
+        again: dict = {}
+        try:
+            with in_path(fa, gm, eng.model, again, trace=True):
+                eng.generate(prompts, n_new=n_new)
+            break
+        except TraceIncomplete as err:
+            check(attempt == 1, f"{eng.cfg.name}: {err}")
+            print(f"{eng.cfg.name}: {err}; the repeat is traced once more")
     check({k: t["launches"] for k, t in again.items()}
           == {k: t["launches"] for k, t in tally.items()},
           f"{eng.cfg.name}: the traced repeat launched other kernels")
@@ -922,12 +946,13 @@ def moe_engine_phase(fa, gm, cfg, dtype=torch.float32):
     check(got == want_tally, f"moe K2 launches by phase and shape {got}, "
           f"want {want_tally}")
     # every prefill launch (C > 32) on the tensor-core variant of the
-    # dtype, every decode launch on the byte-streaming one
+    # dtype; every decode launch on the CUDA cores' gmm_small in fp32,
+    # on the tensor cores' gmm_decode_bf16 in bf16
     n_pre = sum(n for (ph, _), n in got.items() if ph == "prefill")
     want_routes = dict.fromkeys(gm.ROUTES, 0)
-    want_routes["gmm_small"] = want - n_pre
-    want_routes["gmm_wgmma" if dtype == torch.float32
-                else "gmm_wgmma_bf16"] = n_pre
+    f32 = dtype == torch.float32
+    want_routes["gmm_small" if f32 else "gmm_decode_bf16"] = want - n_pre
+    want_routes["gmm_wgmma" if f32 else "gmm_wgmma_bf16"] = n_pre
     print(f"moe {dtype} main path K2 launches by variant: "
           + json.dumps(gm.route_launches))
     check(gm.route_launches == want_routes, f"moe K2 launches by variant "
@@ -1225,8 +1250,9 @@ def k2_rows(gm, ref, cfg, tally: dict, dtype) -> list:
             "route": "cuda",
             "variant": variant,
             "products": {"gmm_wgmma": "3xTF32 wgmma",
-                         "gmm_wgmma_bf16": "bf16 wgmma"}.get(variant,
-                                                            "fp32 FMA"),
+                         "gmm_wgmma_bf16": "bf16 wgmma",
+                         "gmm_decode_bf16": "bf16 wgmma"}.get(variant,
+                                                             "fp32 FMA"),
             "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
             "replaces": "src/repro/kernels/moe_gmm.py:21",
             "launches": n,
@@ -1835,6 +1861,8 @@ def main() -> int:
             elif "spill" in line and any(k in kernel for k in TENSOR_CORE):
                 check(" 0 bytes spill stores, 0 bytes spill loads" in line,
                       f"ptxas spills in {kernel}: {line}")
+            check("C7514" not in line or "gmm_decode_bf16" not in line,
+                  f"ptxas serializes gmm_decode_bf16's wgmma: {line}")
 
     cfgs = {k: ARCHS[k] for k in ("qwen2-0.5b", "qwen2-moe-a2.7b",
                                   "zamba2-7b", "internvl2-1b",

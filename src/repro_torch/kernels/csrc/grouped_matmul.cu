@@ -32,10 +32,11 @@
 //    by the copies), so any shape with non-zero dimensions is right,
 //    (1, 1, 1, 1) included.
 //
-// Four variants, chosen on the host from the shapes, the type and the
+// Five variants, chosen on the host from the shapes, the type and the
 // pointers alone (repro_grouped_matmul_route; it never reads `rows`):
 //
-//  * gmm_small, C <= 32, bound by bytes (the decode step of
+//  * gmm_small, C <= 32 in fp32, and in bf16 where TMA cannot copy,
+//    bound by bytes (the decode step of
 //    qwen2-moe-a2.7b: (60, 32, 2048) x (60, 2048, 1408) at B = 4, where
 //    at most 16 experts hold a token and each at most 4 rows). Its bound
 //    counts the weights of the experts that hold a token, their occupied
@@ -126,6 +127,45 @@
 //    - Rows: as in gmm_wgmma, n-tiles wholly at or past rows[e] are
 //      neither copied nor computed, and the experts with the most rows
 //      launch first.
+//  * gmm_decode_bf16, C <= 32 in bf16 with d and f multiples of 8 and
+//    16-byte aligned pointers (the decode step served in bf16). Dense it
+//    does 11.1 GFLOP against 359 MB: 0.107 ms at 3.35 TB/s, 0.011 ms at
+//    989 TFLOP/s; with the decode step's rows (~15 of 60 experts, 1-4
+//    rows each) the weights of the experts that hold a row, ~87 MB, and
+//    all of o, 5.4 MB, set it (~0.027 ms). So the kernel is a weight stream, with the
+//    products done on the tensor cores on the way:
+//    - The operands are swapped: o^T = w^T x^T, A = w^T (M = 64 columns
+//      of f an m-tile), B = x^T (N = 8 rows of C an n-tile, one wgmma of
+//      N = 8, 16, 24 or 32 over the occupied n-tiles, their count fixed
+//      at compile time), one fp32 accumulator over the whole of d,
+//      written once in bf16. Both operands come from shared memory: w as
+//      it lies in its 128-byte-swizzled TMA box, MN-major (bf16 wgmma
+//      reads A transposed), x K-major. So the consumer only issues the
+//      products; the tensor cores read each weight once from shared
+//      memory, at 2 KB a 16-deep step, far below what shared memory
+//      gives, and hold no fragment in registers.
+//    - A block of one warpgroup owns one (expert, D_BM = 64 columns of
+//      f) and streams that slice of w, D_BK = 64 deep a stage (8 KB of w
+//      and 1 KB an occupied n-tile of x) through a ring of D_STAGES = 3
+//      stages with TMA copies; a "full" mbarrier a stage. The products
+//      of a stage take a few hundred cycles where its bytes take
+//      thousands to come, so there is no producer warp: the
+//      warpgroup's first thread refills a slot as soon as the products
+//      on it are done, and D_STAGES - 1 stages stay in flight. At ~39
+//      KB a block, five blocks share an SM (660 places on 132 SMs): 16
+//      KB of weights in flight a block, 40-58 KB an SM, where gmm_small
+//      keeps 4 KB in flight a block. 2 or 4 stages, or 128 columns a
+//      block, were no faster; by ablation the weights alone take as
+//      long as the whole kernel (tools/k2_variants.py).
+//    - Only active experts cost: blocks take experts in rank order
+//      (ranked_expert), so the ~15 that hold a row (330 blocks of gate
+//      and up, 480 of down) all start at once and share the memory's
+//      bandwidth; a block whose expert holds no row writes its slice of
+//      o as 0 with 16-byte stores and exits, reading nothing, and the
+//      ~1000-1400 such blocks pass through the places left over. Rows
+//      past the occupied n-tiles are written 0 without a product, and
+//      rows inside them at or past rows[e] are written 0 in place of the
+//      accumulator.
 //  * gmm_large, C > 32 where TMA cannot copy (d or f not a multiple of
 //    16 bytes' worth of elements, or a pointer off 16-byte alignment; no
 //    main path launches it): a register-tiled SGEMM on the CUDA cores.
@@ -137,7 +177,7 @@
 // The vector copies of gmm_small and gmm_large need d and f to be
 // multiples of 16 bytes' worth of elements and 16-byte aligned pointers;
 // other shapes take scalar loads through the same tiles.
-// (tools/k2_variants.py times other tile choices.)
+// (tools/k2_variants.py times other tile choices and the ablations.)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -522,15 +562,24 @@ __global__ void __launch_bounds__(L_THREADS, L_MIN_BLOCKS)
 // it). Blocks launch in order of blockIdx.z, and with rows an expert's
 // blocks take time in proportion to its occupied n-tiles: block z takes
 // the expert with the z-th most occupied rows (ties by index), so the
-// longest run first and the shortest fill the last wave.
+// longest run first and the shortest fill the last wave. Up to
+// RANK_CACHE experts' rows are read once into shared memory.
+constexpr int RANK_CACHE = 256;
 __device__ int ranked_expert(const int* rows, int C) {
   __shared__ int expert;
+  __shared__ int occ[RANK_CACHE];
   if (rows == nullptr) return blockIdx.z;
-  for (int i = threadIdx.x; i < (int)gridDim.z; i += blockDim.x) {
-    const int ni = occupied(rows, i, C);
+  const int E = gridDim.z;
+  const bool cached = E <= RANK_CACHE;
+  if (cached)
+    for (int i = threadIdx.x; i < E; i += blockDim.x)
+      occ[i] = occupied(rows, i, C);
+  __syncthreads();
+  for (int i = threadIdx.x; i < E; i += blockDim.x) {
+    const int ni = cached ? occ[i] : occupied(rows, i, C);
     int rank = 0;
-    for (int j = 0; j < (int)gridDim.z; ++j) {
-      const int nj = occupied(rows, j, C);
+    for (int j = 0; j < E; ++j) {
+      const int nj = cached ? occ[j] : occupied(rows, j, C);
       rank += nj > ni || (nj == ni && j < i);
     }
     if (rank == (int)blockIdx.z) expert = i;
@@ -959,21 +1008,170 @@ cudaError_t launch_wgmma_bf16(const void* x, const void* w, void* o,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// C <= SMALL_C, bf16, d and f multiples of 8, 16-byte aligned pointers:
+// bf16 wgmma (o^T = w^T x^T, both operands from shared memory) on a TMA
+// stream of the active experts' weights. See the note at the top.
+constexpr int D_MT = 1;          // 64-column m-tiles of f per block
+constexpr int D_BM = 64 * D_MT;  // columns of f per block
+constexpr int D_BK = 64;         // depth per stage: one 128-byte swizzle row
+constexpr int D_STAGES = 3;      // stages in the ring
+// Ablation only (tools/k2_variants.py): 1 skips the products, 2 the x
+// copies; 3 both, and the ring then holds no x.
+constexpr int D_SKIP = 0;
+constexpr int D_NT = SMALL_C / 8;  // n-tiles of 8 rows of C (wgmma N = 8)
+constexpr int D_TILE_W = D_BK * D_BM;  // bf16 values of w in a stage
+constexpr int D_TILE_X = D_SKIP == 3 ? 0 : D_NT * 8 * D_BK;  // of x
+constexpr int D_STAGE = D_TILE_W + D_TILE_X;
+constexpr int D_SMEM = D_STAGES * D_STAGE * 2 + D_STAGES * 8 + 1024;
+static_assert(D_BK == 64 && SMALL_C % 8 == 0 && SMALL_C <= 32,
+              "one 128-byte swizzle row of depth; wgmma N at most 32");
+static_assert(D_SMEM <= 232448, "the ring fits in an SM's shared memory");
+
+__global__ void __launch_bounds__(128)
+    gmm_decode_bf16(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap w_map,
+                    __nv_bfloat16* __restrict__ o,
+                    const int* __restrict__ rows, int C, int D, int F) {
+  extern __shared__ unsigned char dsmem[];
+  // 1024-byte alignment for the swizzled tiles: [stage][w m-tiles | x]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(dsmem) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + D_STAGES * D_STAGE * 2);
+
+  const int e = ranked_expert(rows, C);
+  const int f0 = blockIdx.x * D_BM;
+  const int n = occupied(rows, e, C);
+  __nv_bfloat16* oe = o + (int64_t)e * C * F;
+  // n-tiles of 8 rows holding an occupied row; the rows past them are
+  // written 0 here, 16 bytes a store (F and f0 are multiples of 8, o is
+  // 16-byte aligned), and an expert with no occupied row reads nothing
+  const int live = (n + 7) / 8;
+  const int w8 = min(D_BM, F - f0) / 8;
+  for (int i = threadIdx.x; i < (C - 8 * live) * w8; i += blockDim.x)
+    *reinterpret_cast<uint4*>(oe + (int64_t)(8 * live + i / w8) * F + f0 +
+                              i % w8 * 8) = make_uint4(0, 0, 0, 0);
+  if (live == 0) return;
+  const int nk = (D + D_BK - 1) / D_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < D_STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Thread 0 copies stage kt into its slot: D_MT boxes of w (64 columns
+  // of f x D_BK of d each, MN-major) and the live n-tiles of x (8 rows x
+  // D_BK, K-major), all 128-byte swizzled.
+  const uint32_t bytes =
+      2u * (D_TILE_W + ((D_SKIP & 2) ? 0 : live * 8 * D_BK));
+  auto load = [&](int kt) {
+    const int s = kt % D_STAGES;
+    unsigned char* st = ring + s * D_STAGE * 2;
+    mbar_expect_tx(&full[s], bytes);
+    for (int m = 0; m < D_MT; ++m)
+      tma_load(st + m * D_BK * 64 * 2, &w_map, &full[s], f0 + 64 * m,
+               kt * D_BK, e);
+    if constexpr (!(D_SKIP & 2))
+      for (int t = 0; t < live; ++t)
+        tma_load(st + (D_TILE_W + t * 8 * D_BK) * 2, &x_map, &full[s],
+                 kt * D_BK, 8 * t, e);
+  };
+  if (threadIdx.x == 0)
+    for (int kt = 0; kt < min(D_STAGES, nk); ++kt) load(kt);
+
+  // Warp wi holds A rows (f) 16 wi + g and + 8 of each m-tile, and
+  // columns (c) 8 j + 2 q and + 1 of n-tile j (g = lane / 4, q = lane % 4).
+  const int wi = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
+            q = threadIdx.x % 4;
+  // The live n-tiles fixed at compile time: one wgmma of N = 8 LIVE a
+  // 16-deep step and m-tile, so ptxas sees how many are in flight.
+  with_const<D_NT>(live, [&](auto n_live) {
+    constexpr int LIVE = decltype(n_live)::value;
+    constexpr int ND = 4 * LIVE;  // accumulator floats a thread per m-tile
+    float acc[D_MT][ND];
+#pragma unroll
+    for (int m = 0; m < D_MT; ++m)
+#pragma unroll
+      for (int i = 0; i < ND; ++i) acc[m][i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % D_STAGES;
+      mbar_wait(&full[s], (kt / D_STAGES) & 1);
+      if constexpr (!(D_SKIP & 1)) {
+        const unsigned char* st = ring + s * D_STAGE * 2;
+        const uint64_t dx = sw128_desc(st + D_TILE_W * 2);
+#pragma unroll
+        for (int m = 0; m < D_MT; ++m) keep(acc[m]);
+        wgmma_fence();
+#pragma unroll
+        for (int m = 0; m < D_MT; ++m) {
+          const uint64_t dw = sw128_desc_mn(st + m * D_BK * 64 * 2, D_BK * 128);
+#pragma unroll
+          for (int j = 0; j < D_BK / 16; ++j)
+            // 16 rows of d a step: + 2048 bytes of w, + 32 bytes of x
+            wgmma_bf16_ss_amn(acc[m], dw + 128 * j, dx + 2 * j, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int m = 0; m < D_MT; ++m) keep(acc[m]);
+      }
+      __syncthreads();  // every warp's products are done with the slot
+      if (threadIdx.x == 0 && kt + D_STAGES < nk) load(kt + D_STAGES);
+    }
+
+    // acc[m][4 j + 2 h + b] is o^T at f = f0 + 64 m + 16 wi + g + 8 h,
+    // c = 8 j + 2 q + b. Rows of c at or past n are written 0, never the
+    // accumulator.
+#pragma unroll
+    for (int m = 0; m < D_MT; ++m)
+#pragma unroll
+      for (int j = 0; j < LIVE; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const int c = 8 * j + 2 * q + b;
+            const int f = f0 + 64 * m + 16 * wi + g + 8 * h;
+            if (c < C && f < F)
+              oe[(int64_t)c * F + f] = __float2bfloat16_rn(
+                  c < n ? acc[m][4 * j + 2 * h + b] : 0.f);
+          }
+  });
+}
+
+cudaError_t launch_decode_bf16(const void* x, const void* w, void* o,
+                               const int* rows, int E, int C, int D, int F,
+                               cudaStream_t stream) {
+  CUtensorMap x_map, w_map;
+  if (!tensor_map(&x_map, x, D, C, E, D_BK, 8, true) ||
+      !tensor_map(&w_map, w, F, D, E, 64, D_BK, true))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gmm_decode_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, D_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((F + D_BM - 1) / D_BM), 1u, (unsigned)E);
+  gmm_decode_bf16<<<grid, 128, D_SMEM, stream>>>(
+      x_map, w_map, static_cast<__nv_bfloat16*>(o), rows, C, D, F);
+  return cudaGetLastError();
+}
+
 enum Route {
   ROUTE_SMALL = 0,
   ROUTE_WGMMA = 1,
   ROUTE_LARGE = 2,
-  ROUTE_WGMMA_BF16 = 3
+  ROUTE_WGMMA_BF16 = 3,
+  ROUTE_DECODE_BF16 = 4
 };
 
 Route route(const void* x, const void* w, const void* o, int C, int D, int F,
             bool bf16) {
-  if (C <= SMALL_C) return ROUTE_SMALL;
   const bool aligned = (reinterpret_cast<uintptr_t>(x) |
                         reinterpret_cast<uintptr_t>(w) |
                         reinterpret_cast<uintptr_t>(o)) % 16 == 0;
   const int v = bf16 ? 8 : 4;  // elements in 16 bytes (TMA's unit)
-  if (D % v != 0 || F % v != 0 || !aligned) return ROUTE_LARGE;
+  const bool tma = D % v == 0 && F % v == 0 && aligned;
+  if (C <= SMALL_C) return bf16 && tma ? ROUTE_DECODE_BF16 : ROUTE_SMALL;
+  if (!tma) return ROUTE_LARGE;
   return bf16 ? ROUTE_WGMMA_BF16 : ROUTE_WGMMA;
 }
 
@@ -1035,6 +1233,8 @@ extern "C" int repro_grouped_matmul(const void* x, const void* w, void* o,
       return (int)launch_wgmma(x, w, o, rows, E, C, D, F, s);
     case ROUTE_WGMMA_BF16:
       return (int)launch_wgmma_bf16(x, w, o, rows, E, C, D, F, s);
+    case ROUTE_DECODE_BF16:
+      return (int)launch_decode_bf16(x, w, o, rows, E, C, D, F, s);
     default:
       break;
   }
@@ -1044,7 +1244,8 @@ extern "C" int repro_grouped_matmul(const void* x, const void* w, void* o,
 }
 
 // The variant repro_grouped_matmul launches for these arguments: 0
-// gmm_small, 1 gmm_wgmma, 2 gmm_large, 3 gmm_wgmma_bf16.
+// gmm_small, 1 gmm_wgmma, 2 gmm_large, 3 gmm_wgmma_bf16, 4
+// gmm_decode_bf16.
 extern "C" int repro_grouped_matmul_route(const void* x, const void* w,
                                           const void* o, int C, int D, int F,
                                           int is_bf16) {

@@ -395,6 +395,53 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[ND],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// d (m64 x nN, fp32) = (scale_d ? d : 0) + a b for a 64 x 16 MN-major bf16
+// A (M contiguous; the transposed form) and a 16 x N K-major bf16 B, both
+// in shared memory; N = 2 ND = 8, 16, 24 or 32.
+template <int ND>
+__device__ __forceinline__ void wgmma_bf16_ss_amn(float (&d)[ND], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  static_assert(ND == 4 || ND == 8 || ND == 12 || ND == 16,
+                "wgmma N 8, 16, 24, 32");
+  if constexpr (ND == 4) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else if constexpr (ND == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else if constexpr (ND == 12) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+        "%12, %13, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11])
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+}
+
 // Four 8 x 8 matrices of 16-bit values from shared memory, transposed:
 // lane i gives the address of row i % 8 of matrix i / 8 (16 bytes), and
 // r[m] of lane t holds column t / 4, rows 2 (t % 4) and + 1, of matrix

@@ -19,12 +19,14 @@ DTYPES = (torch.float32, torch.bfloat16)
 # Kernel launches in this process; callers reset it to 0 to count a run.
 launches = 0
 # The same launches by the kernel variant that ran (see the note in
-# csrc/grouped_matmul.cu): gmm_small (C <= 32), gmm_wgmma (C > 32, fp32,
-# 3xTF32 on the tensor cores), gmm_large (C > 32 where TMA cannot copy,
-# on the CUDA cores), gmm_wgmma_bf16 (C > 32, bf16, on the tensor
-# cores); callers reset them to 0 with ``launches``. The index is the
-# kernel's route number.
-ROUTES = ("gmm_small", "gmm_wgmma", "gmm_large", "gmm_wgmma_bf16")
+# csrc/grouped_matmul.cu): gmm_small (C <= 32 in fp32, or in bf16 where
+# TMA cannot copy; CUDA cores), gmm_wgmma (C > 32, fp32, 3xTF32 on the
+# tensor cores), gmm_large (C > 32 where TMA cannot copy, on the CUDA
+# cores), gmm_wgmma_bf16 (C > 32, bf16, on the tensor cores),
+# gmm_decode_bf16 (C <= 32, bf16, on the tensor cores); callers reset
+# them to 0 with ``launches``. The index is the kernel's route number.
+ROUTES = ("gmm_small", "gmm_wgmma", "gmm_large", "gmm_wgmma_bf16",
+          "gmm_decode_bf16")
 route_launches = dict.fromkeys(ROUTES, 0)
 
 

@@ -437,6 +437,113 @@ def test_grouped_matmul_prefill_runs_bf16_wgmma(hopper, shape, case):
                                atol=2e-2)
 
 
+DECODE_SHAPES = [(60, 32, 2048, 1408), (60, 32, 1408, 2048)]
+DECODE_CASES = ["dense", "decode", "zero", "full", "nan",
+                "n1", "n7", "n8", "n9", "n17", "n32"]
+
+
+def _decode_rows(case, E, C, seed):
+    """rows of a decode case: "decode", "zero", "full" as ``_rows``;
+    "nan" the "decode" rows; "n<k>" k rows in the even experts and none
+    in the odd ones (k = 1, 7, 8, 9, 17, 32: one to four n-tiles of 8
+    rows, full or not); "dense" none."""
+    if case == "dense":
+        return None
+    if case.startswith("n") and case != "nan":
+        r = torch.zeros(E, dtype=torch.int32)
+        r[::2] = int(case[1:])
+        return r.cuda()
+    return _rows("decode" if case == "nan" else case, E, C, seed=seed)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_grouped_matmul_decode_runs_bf16_wgmma(hopper, shape, case):
+    """The moe decode step's two K2 shapes at full width in bf16 go
+    through the tensor-core decode variant (gmm_decode_bf16) and hold
+    2e-2 against the plain version: dense, with rows "decode" (15
+    experts of 1-4 rows), "zero", "full" and n rows in half the experts
+    for n in {1, 7, 8, 9, 17, 32}, and with NaN in x past rows[e] and in
+    the weights of experts with no row, which reach no output. Rows past
+    rows[e] come out exactly 0, and a second launch gives the same bits
+    (no atomics)."""
+    E, C, d, f = shape
+    x, w = _gmm_inputs(shape, torch.bfloat16, seed=25)
+    rows = _decode_rows(case, E, C, seed=25)
+    live = torch.ones(E, C, dtype=torch.bool, device="cuda")
+    if rows is not None:
+        live = torch.arange(C, device="cuda") < rows[:, None]
+        x = torch.where(live[..., None], x, 0)
+    want = grouped_matmul_ref(x, w, rows)
+    if case == "nan":
+        x = torch.where(live[..., None], x, float("nan"))
+        w[rows == 0] = float("nan")
+    out, routes = _routes_of(lambda: gm.grouped_matmul(x, w, rows))
+    assert routes == {"gmm_decode_bf16": 1}
+    assert out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all()) and not out[~live].any()
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert torch.equal(out, gm.grouped_matmul(x, w, rows))
+
+
+@pytest.mark.parametrize("kind", ["dense", "ragged"])
+@pytest.mark.parametrize("shape", [
+    (1, 1, 64, 64),      # E = 1, C = 1
+    (5, 8, 64, 128),     # one full n-tile
+    (3, 24, 192, 72),    # f off the 64-column slice
+    (2, 17, 40, 24),     # d and f below one TMA box, C off the n-tiles
+    (4, 32, 200, 136),   # d off the 64-deep stage
+    (300, 4, 64, 64),    # more experts than the rank's shared cache
+])
+def test_grouped_matmul_decode_edges(hopper, shape, kind):
+    """Small and ragged bf16 shapes at C <= 32 that TMA can copy take
+    gmm_decode_bf16 (the boxes past d, f and C read 0) and hold 2e-2
+    against the plain version, rows past rows[e] exactly 0; 300 experts
+    rank their rows from device memory (``RANK_CACHE`` holds 256)."""
+    E, C, d, f = shape
+    x, w = _gmm_inputs(shape, torch.bfloat16, seed=26)
+    rows = _rows(kind, E, C, seed=26) if kind != "dense" else None
+    live = torch.ones(E, C, dtype=torch.bool, device="cuda")
+    if rows is not None:
+        live = torch.arange(C, device="cuda") < rows[:, None]
+        x = torch.where(live[..., None], x, 0)
+    out, routes = _routes_of(lambda: gm.grouped_matmul(x, w, rows))
+    assert routes == {"gmm_decode_bf16": 1}
+    assert not out[~live].any()
+    torch.testing.assert_close(out.float(),
+                               grouped_matmul_ref(x, w, rows).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("case", ["fp32", "fp32_rows", "bf16_f132",
+                                  "bf16_unaligned", "one"])
+def test_grouped_matmul_decode_keeps_cuda_cores(hopper, case):
+    """C <= 32 stays on the CUDA-core variant (gmm_small) in fp32, and in
+    bf16 where TMA cannot copy: f = 132 (not a multiple of 8), an x 4
+    bytes past 16-byte alignment, and E = C = d = f = 1; right all the
+    same."""
+    shape, dtype = {"fp32": ((60, 32, 2048, 1408), torch.float32),
+                    "fp32_rows": ((60, 32, 1408, 2048), torch.float32),
+                    "bf16_f132": ((6, 20, 304, 132), torch.bfloat16),
+                    "bf16_unaligned": ((4, 32, 256, 128), torch.bfloat16),
+                    "one": ((1, 1, 1, 1), torch.bfloat16)}[case]
+    x, w = _gmm_inputs(shape, dtype)
+    if case == "bf16_unaligned":
+        x = torch.cat([x.new_zeros(2), x.flatten()])[2:].view(shape[:3])
+    rows = _rows("decode", shape[0], shape[1]) if case == "fp32_rows" \
+        else None
+    if rows is not None:
+        live = torch.arange(shape[1], device="cuda") < rows[:, None]
+        x = torch.where(live[..., None], x, 0)
+    out, routes = _routes_of(lambda: gm.grouped_matmul(x, w, rows))
+    assert routes == {"gmm_small": 1}
+    tol = _tol(dtype)
+    torch.testing.assert_close(out.float(),
+                               grouped_matmul_ref(x, w, rows).float(),
+                               rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("case", ["f_off", "d_off", "bf16", "unaligned",
                                   "bf16_unaligned"])
 def test_grouped_matmul_takes_cuda_cores_where_tma_cannot(hopper, case):

@@ -131,9 +131,9 @@ def test_grouped_matmul_variant_names_follow_the_source():
     values = {name.strip(): int(v) for name, v in
               (item.split("=") for item in enum.split(","))}
     assert values == {"ROUTE_SMALL": 0, "ROUTE_WGMMA": 1, "ROUTE_LARGE": 2,
-                      "ROUTE_WGMMA_BF16": 3}
+                      "ROUTE_WGMMA_BF16": 3, "ROUTE_DECODE_BF16": 4}
     assert gm.ROUTES == ("gmm_small", "gmm_wgmma", "gmm_large",
-                         "gmm_wgmma_bf16")
+                         "gmm_wgmma_bf16", "gmm_decode_bf16")
     assert all(f" {name}(" in src for name in gm.ROUTES)   # the kernels
     assert "repro_grouped_matmul_route" in _build.SIGNATURES["grouped_matmul"]
     _, (x, w) = _gmm_inputs((2, 64, 16, 8), "float32")
@@ -164,6 +164,11 @@ def _rows_case(shape, dtype, seed=0):
     (6, 100, 300, 130),   # ragged everywhere
     (5, 32, 64, 48),      # the decode variant's C
     (2, 1, 1, 1),
+    # C <= 32 with d and f multiples of 8: in bf16 on the card the tensor-
+    # core decode variant's shapes (1, 3 and 4 n-tiles of 8 rows)
+    (5, 8, 64, 128),
+    (3, 24, 192, 72),
+    (4, 32, 128, 64),
 ])
 def test_grouped_matmul_rows_matches_reference(shape, dtype):
     """The ``rows`` contract on the plain path: for x whose rows past

@@ -4,10 +4,12 @@ one decode step of the port's model API, traced by ``torch.profiler``.
 
 Run from the repository root on a machine with the card and ``nvcc``:
 
-    python3 tools/profile_engine.py [--model zamba2-7b ...]
+    python3 tools/profile_engine.py [--model zamba2-7b ...] [--dtype bfloat16]
 
-For each model (full width and depth, fp32, weights drawn on the card
-from a CUDA generator seeded 0, TF32 off): a warm-up, then a prefill of
+For each model (full width and depth, weights in ``--dtype``, fp32 by
+default, drawn on the card from a CUDA generator seeded 0 as
+``chip_smoke.py``'s ``draw_on_card`` draws them, the KV cache fp32 as
+the serving engine keeps it, TF32 off): a warm-up, then a prefill of
 4 x 500 tokens (the traffic of ``chip_smoke.py``) into a cache of 1024
 positions and one decode step after it, each traced on its own. Prints
 per phase: the host time (clock after ``torch.cuda.synchronize()``), the
@@ -72,11 +74,11 @@ def traced(fn) -> dict:
 
 
 @torch.inference_mode()
-def profile_model(name: str) -> None:
+def profile_model(name: str, dtype: torch.dtype) -> None:
     cfg = ARCHS[name]
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                        device="cuda")
+                        dtype, device="cuda")
     K = (cfg.n_codebooks,) if cfg.family == "audio" else ()
     rng = np.random.default_rng(0)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, *K, S)),
@@ -85,7 +87,7 @@ def profile_model(name: str) -> None:
     batch = {"tokens": toks}
     if n_prefix:
         batch["patch_embeds"] = torch.zeros((B, n_prefix, cfg.d_model),
-                                            device="cuda")
+                                            dtype=dtype, device="cuda")
     state = {}
 
     def prefill(cache):
@@ -103,8 +105,8 @@ def profile_model(name: str) -> None:
     for phase, fn in (("prefill", lambda: prefill(cache)),
                       ("decode_step", decode)):
         out = traced(fn)
-        print(json.dumps({"model": name, "phase": phase, "batch": B,
-                          "prompt": S, **out}))
+        print(json.dumps({"model": name, "dtype": str(dtype)[6:],
+                          "phase": phase, "batch": B, "prompt": S, **out}))
     del params, state
     torch.cuda.empty_cache()
 
@@ -113,6 +115,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", action="append", choices=sorted(ARCHS),
                     help="a model to profile (default: zamba2-7b)")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32", help="the weights' dtype")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_engine: no CUDA device", file=sys.stderr)
@@ -123,7 +127,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     for name in args.model or ["zamba2-7b"]:
-        profile_model(name)
+        profile_model(name, getattr(torch, args.dtype))
     return 0
 
 
