@@ -10,7 +10,8 @@ Run from the repository root, with nothing else on the command line:
    ``nvcc`` per source, all at once).
 2. Kernels: holds each kernel against its plain PyTorch version on the
    card: flash attention (K1) at every serving path's prefill shape
-   (head dims 64, 112 and 128) and at ragged, wide-head, Sq != Sk,
+   (head dims 64, 112 and 128; qwen3-14b's GQA groups of 5, minicpm-2b's
+   36 heads) and at ragged, wide-head, Sq != Sk,
    non-causal, off-tile and GQA-group cases, in fp32 and bf16, and in
    fp32 with q scaled by 8 (a peaked softmax) at the qwen2, moe and
    Zamba2 prefill shapes; the grouped GEMM (K2) at the moe path's
@@ -28,11 +29,17 @@ Run from the repository root, with nothing else on the command line:
    the card from a seed) through ``ServeEngine.generate``, checks that
    every layer's prefill attention went through K1, on its 3xTF32
    variant (each launch's device time read from CUDA events around it,
-   and from a torch.profiler trace of a repeat of the run), and holds the
-   card against the port's CPU path at full depth on weights drawn on the
-   CPU. Then the same in bf16 (the KV cache stays fp32, as the
+   and from a torch.profiler trace of a repeat of its prefill), and holds
+   the card against the port's CPU path at full depth (the weights drawn
+   on the card and copied to the CPU). Then the same in bf16 (the KV cache stays fp32, as the
    reference engine keeps it): every K1 launch on flash_wgmma_bf16, and
    card against CPU at 2 layers within bf16's limits (``BF16_REL``).
+   Every card-vs-CPU check serves ``CARD_CPU_ROWS`` prompts (4 in fp32,
+   16 in bf16) and compares each row's greedy tokens up to its first CPU
+   near-tie
+   (``compared_steps``), prints the steps it compared by row and in
+   all, moves to the next prompt seed (at most ``CARD_CPU_SEEDS``) while
+   none is left to compare, and then fails.
 4. Moe engine: serves full-width, 24-layer qwen2-moe-a2.7b in fp32
    (14.3 B parameters, 57 GB, drawn on the card from a CUDA generator)
    through ``ServeEngine.generate``, checks that every prefill
@@ -45,21 +52,32 @@ Run from the repository root, with nothing else on the command line:
    CPU path at full width and 2 layers. Then the same in bf16 (28.6 GB
    of weights drawn on the card in bf16): K1 on flash_wgmma_bf16, every
    prefill K2 launch on gmm_wgmma_bf16, and card against CPU within
-   bf16's limits, a prompt with a router near-tie at a compared position
-   of the last layer (``BF16_ROUTER_REL``) swapped for the next seed;
-   every decode K2 launch on gmm_decode_bf16.
+   bf16's limits; each row compared up to its first CPU router near-tie
+   (bf16: ``BF16_ROUTER_REL`` at the compared position of the last
+   layer; fp32: ``FP32_ROUTER_GAP`` anywhere in the row's forward); every
+   decode K2 launch on gmm_decode_bf16. The card's moe layers serve the
+   CPU's expert choices, and the card's own choices are held beside them
+   (fp32: a flip where the CPU's gap is at least ``FP32_ROUTER_GAP``
+   fails; bf16: counted).
 5. Zamba2 engine: serves zamba2-7b at its full
-   width and depth in fp32 (81 Mamba2 layers and 13 applications of the
-   shared attention block, 6.75 B parameters, 27 GB, drawn on the card)
-   through ``ServeEngine.generate``, checks 13 K1 launches per prefill
-   at hd 112 and none in decode, then holds the card against the CPU
-   path at full width and 12 layers (two shared-block applications) on
-   a 300-token prompt (two SSD chunks).
-6. The other families at full width, each through
-   ``ServeEngine.generate`` (4 x 500 tokens, 16 new): internvl2-1b (256
-   zero patch embeddings before the text; K1 at S = 756), musicgen-large
-   (four codebook streams) and xlstm-350m (no attention, so no K1); each
-   also held against the CPU path at 2 layers.
+   width and depth (81 Mamba2 layers and 13 applications of the shared
+   attention block, 6.75 B parameters, 27 GB in fp32, drawn on the card)
+   through ``ServeEngine.generate``, in fp32 and then in bf16, checks 13
+   K1 launches per prefill at hd 112 and none in decode, then holds the
+   card against the CPU path at full width and 12 layers (two
+   shared-block applications) on 300-token prompts (two SSD chunks); in
+   bf16 those 12 layers one by one, each on the CPU's input, through the
+   prefill and ``ZAMBA2_LAYER_STEPS`` decode steps
+   (``zamba2_layers_card_vs_cpu``), and end to end at
+   ``ZAMBA2_BF16_LAYERS``.
+6. The other models at full width and depth, each through
+   ``ServeEngine.generate`` (4 x 500 tokens, 16 new) in fp32 and then in
+   bf16: internvl2-1b (256 zero patch embeddings before the text; K1 at
+   S = 756), musicgen-large (four codebook streams), xlstm-350m (no
+   attention, so no K1), qwen3-14b (14.77 B parameters, 59 GB in fp32;
+   qk-norm, K1 at GQA 40 / 8, hd 128) and minicpm-2b (MHA, 36 heads at
+   hd 64, tied embeddings); each also held against the CPU path at 2
+   layers.
 7. Training: trains full-width qwen2-0.5b (494,032,768 parameters,
    not cut) on the card through ``train()``: fp32, TF32 off, remat on,
    8 x 256 tokens of ``SyntheticLMData``, 10 steps; checks that the loss
@@ -98,7 +116,9 @@ Run from the repository root, with nothing else on the command line:
     prints the card's grid time (median and spread of 3 calls after a
     warm-up), the CPU's, the discrete simulator's time per cell over the
     nine paper pairs, the loop's iterations and the largest event count.
-11. Timing: times each kernel at each of its main-path shapes, its plain
+11. Timing: times each kernel at each of its main-path shapes (K1 at
+    the prefill shape of every model served with attention, in each
+    dtype it was served in), its plain
     version and the PyTorch library call that computes the same
     function (with the kernels that call ran, from torch.profiler),
     beside the least time the card could take for the same work (fp32:
@@ -118,6 +138,7 @@ fails.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import itertools
@@ -464,7 +485,8 @@ def kernel_phase(fa, gm, ref, cfgs) -> None:
     # non-causal ragged; then S off every query and key tile, Sq < Sk
     # off the tiles, GQA groups 1, 7 and 8; then Zamba2's prefill (hd
     # 112) and hd 112 off the tiles, Sq < Sk and non-causal; then the
-    # internvl2-1b and musicgen-large prefills
+    # internvl2-1b and musicgen-large prefills; then qwen3-14b's (GQA
+    # groups of 5 at hd 128) and minicpm-2b's (36 heads at hd 64)
     cases = [
         (4, 512, 512, 14, 2, 64, True),
         (4, 500, 500, 14, 2, 64, True),
@@ -484,6 +506,8 @@ def kernel_phase(fa, gm, ref, cfgs) -> None:
         (2, 129, 127, 8, 8, 112, False),
         prefill_attention(cfgs["internvl2-1b"]),
         prefill_attention(cfgs["musicgen-large"]),
+        prefill_attention(cfgs["qwen3-14b"]),
+        prefill_attention(cfgs["minicpm-2b"]),
     ]
     checks = [(c, dtype, tol, 1) for c in cases for dtype, tol in
               ((torch.float32, 2e-5), (torch.bfloat16, 2e-2))]
@@ -634,74 +658,182 @@ def kernel_phase(fa, gm, ref, cfgs) -> None:
 
 @torch.inference_mode()
 def greedy_trace(model, params, prompt: np.ndarray, n: int, device: str):
-    """Last-position prefill logits, greedy tokens, each step's top-2
-    logit margin (the least over an audio step's codebooks) and each
-    step's largest |logit|, through the model API, as ``ServeEngine``
-    drives it (a vlm with zero patch embeddings, decoding after them)."""
+    """A batch of prompts (R, S) (an audio model's (R, K, S)) through the
+    model API, as ``ServeEngine`` drives it (a vlm with zero patch
+    embeddings, decoding after them), and ``n`` greedy steps: the
+    last-position prefill logits (R, V) (audio (R, K, V)) in fp32 on the
+    CPU, and by step, a list over the rows of: the row's tokens, its top-2
+    logit margin (the least over an audio step's codebooks) and its
+    largest |logit|."""
     cfg = model.cfg
     toks = torch.as_tensor(prompt, dtype=torch.long, device=device)
-    S = toks.shape[-1]
+    R, S = toks.shape[0], toks.shape[-1]
     n_prefix = cfg.n_patches if cfg.family == "vlm" else 0
     batch = {"tokens": toks}
     if n_prefix:
-        batch["patch_embeds"] = torch.zeros((1, n_prefix, cfg.d_model),
+        batch["patch_embeds"] = torch.zeros((R, n_prefix, cfg.d_model),
                                             device=device)
-    cache = model.init_cache(1, n_prefix + S + n, device=device)
+    cache = model.init_cache(R, n_prefix + S + n, device=device)
     logits, cache = model.prefill(params, batch, cache)
-    first = logits[0, -1].float().cpu()
+    first = logits[:, -1].float().cpu()
     last = logits[:, -1:]
     out, margins, peaks = [], [], []
     for i in range(n):
-        top2 = last[0, 0].float().topk(2, dim=-1).values
-        margins.append(float((top2[..., 0] - top2[..., 1]).min()))
-        peaks.append(float(last[0, 0].float().abs().max()))
-        nxt = last.argmax(dim=-1)               # (1, 1) | (1, 1, K)
+        lg = last[:, 0].float()                 # (R, V) | (R, K, V)
+        top2 = lg.topk(2, dim=-1).values
+        margins.append((top2[..., 0] - top2[..., 1]).reshape(R, -1)
+                       .amin(dim=1).tolist())
+        peaks.append(lg.abs().reshape(R, -1).amax(dim=1).tolist())
+        nxt = last.argmax(dim=-1)               # (R, 1) | (R, 1, K)
         if cfg.family == "audio":
-            nxt = nxt.movedim(-1, 1)            # (1, K, 1)
-        out.append(nxt.flatten().tolist())
+            nxt = nxt.movedim(-1, 1)            # (R, K, 1)
+        out.append(nxt.reshape(R, -1).tolist())
         last, cache = model.decode_step(
             params, cache, {"tokens": nxt, "cache_index": n_prefix + S + i})
     return first, out, margins, peaks
 
 
-# Card against CPU in bf16, set from bf16's 8-bit mantissa before any card
-# run: the last-position prefill logits within BF16_REL x the CPU's
-# largest |logit|, and greedy tokens equal up to the first CPU step whose
-# top-2 margin is below BF16_REL x that step's largest |logit| (fp32:
-# 1e-3 and a margin of 1e-4). For moe, a router choice whose k-th and
-# (k+1)-th probabilities are within BF16_ROUTER_REL x the k-th is a
-# near-tie that bf16's rounding of the router logits can flip.
+# Card against CPU, set before any card run. fp32: the last-position
+# prefill logits within FP32_LOGITS_TOL, and greedy tokens equal up to the
+# first CPU step whose top-2 margin is below FP32_MARGIN. bf16, from bf16's
+# 8-bit mantissa: the logits within BF16_REL x the CPU's largest |logit|,
+# and a near-tie where the margin is below BF16_REL x that step's largest
+# |logit|. For moe, a router choice whose k-th and (k+1)-th probabilities
+# are within FP32_ROUTER_GAP (fp32, absolute) or BF16_ROUTER_REL x the
+# k-th (bf16) is a near-tie that rounding can flip.
+FP32_LOGITS_TOL = 1e-3
+FP32_MARGIN = 1e-4
+FP32_ROUTER_GAP = 1e-6
 BF16_REL = 2.0 ** -5
 BF16_ROUTER_REL = 2.0 ** -8
+# Prompts of a card-vs-CPU check (rows of one batch) by dtype, and the
+# prompt seeds it may try before it fails for want of a step to compare.
+# fp32 compares every step of every row; bf16's near-tie (BF16_REL of the
+# largest |logit|) ends most rows within a few steps, so bf16 serves more.
+CARD_CPU_ROWS = {torch.float32: 4, torch.bfloat16: 16}
+CARD_CPU_SEEDS = 3
+# Layers of Zamba2's end-to-end card-vs-CPU check in bf16. Zamba2's bf16
+# rounding grows through its layers on either device: at 12 layers its
+# last-position logits lie 6-33% of the largest |logit| from the fp32
+# model on the same weights, on the card and on the CPU alike, and the two
+# 4.2-8.0% from each other, whether cuBLAS may reduce bf16 sums in bf16 or
+# not (the same bits). Ended after 2 layers the card and the CPU lie at
+# most 0.78% apart (the worst of 4 rows), after 4 1.5%, after 6 (its first
+# shared block) 2.2%, after 8 6.2% (tools/bf16_drift.py on an H100 80GB
+# HBM3, 700 W). Fed the same input, one layer on the card lies within
+# 1.0% of the CPU's.
+# So the end-to-end check runs at 2 layers, and zamba2_layers_card_vs_cpu
+# holds all 12, its two shared-block applications included, layer by
+# layer through a prefill and ZAMBA2_LAYER_STEPS decode steps.
+ZAMBA2_BF16_LAYERS = 2
+ZAMBA2_LAYER_ROWS = 4
+ZAMBA2_LAYER_STEPS = 4
 
 
-def compare_card_cpu(g_trace, c_trace, n: int, dtype=torch.float32) -> None:
-    """fp32: last-position prefill logits to 1e-3, greedy tokens equal up
-    to the first CPU step whose top-2 logit margin is below 1e-4. bf16:
-    the same, relative to the largest |logit| by ``BF16_REL``."""
+def logits_limit(peak: float, dtype) -> float:
+    """How far the card's last-position prefill logits of a row may lie
+    from the CPU's, whose largest |logit| is ``peak``."""
+    return FP32_LOGITS_TOL if dtype == torch.float32 else BF16_REL * peak
+
+
+def near_tie(peak: float, dtype) -> float:
+    """A CPU step whose top-2 margin is below this (its largest |logit|
+    ``peak``) is a near-tie: rounding may pick the other token."""
+    return FP32_MARGIN if dtype == torch.float32 else BF16_REL * peak
+
+
+def first_below(values, limit: float) -> list:
+    """``values`` by step, a list over rows each: per row, the first step
+    whose value is below ``limit`` (the number of steps if none is)."""
+    n = len(values)
+    return [next((i for i in range(n) if values[i][r] < limit), n)
+            for r in range(len(values[0]))]
+
+
+def compared_steps(margins, peaks, dtype, cut=None) -> list:
+    """Per row, the greedy steps a card-vs-CPU check compares: those
+    before the row's first CPU near-tie (``near_tie``), and before its
+    ``cut`` where one is given (moe: the row's first router near-tie).
+    ``margins`` and ``peaks`` by step, a list over rows each."""
+    n = len(margins)
+    out = []
+    for r in range(len(margins[0])):
+        near = next((i for i in range(n)
+                     if margins[i][r] < near_tie(peaks[i][r], dtype)), n)
+        out.append(near if cut is None else min(near, cut[r]))
+    return out
+
+
+def steps_equal(g_toks, c_toks) -> list:
+    """Per row, the greedy steps before the first whose tokens differ."""
+    n = len(g_toks)
+    return [next((i for i in range(n) if g_toks[i][r] != c_toks[i][r]), n)
+            for r in range(len(g_toks[0]))]
+
+
+def tokens_hold(compared, equal) -> bool:
+    """The token rule: at least one step compared in all, and every row's
+    tokens equal in each of its compared steps."""
+    return sum(compared) > 0 and all(e >= c for e, c in zip(equal, compared))
+
+
+def compare_card_cpu(g_trace, c_trace, dtype=torch.float32,
+                     cut=None) -> dict:
+    """The card's ``greedy_trace`` against the CPU's: each row's
+    last-position prefill logits within ``logits_limit``, and its tokens
+    equal in each step ``compared_steps`` counts (up to ``cut`` where one
+    is given); at least one step compared in all (``tokens_hold``)."""
     (g_first, g_toks, _, _), (c_first, c_toks, margins, peaks) = \
         g_trace, c_trace
-    err = (g_first - c_first).abs().max().item()
-    if dtype == torch.float32:
-        limit, near = 1e-3, [1e-4] * n
-        what = "1e-4"
-    else:
-        limit = BF16_REL * c_first.abs().max().item()
-        near = [BF16_REL * p for p in peaks]
-        what = f"{BF16_REL:g} x the step's largest |logit|"
-    print(f"prefill last-position logits, card vs CPU, {dtype}: "
-          f"max|d|={err:.3e} (limit {limit:.3e}; largest CPU |logit| "
-          f"{c_first.abs().max().item():.3e})")
-    check(math.isfinite(err) and err <= limit,
+    R = len(margins[0])
+    errs = [(g_first[r] - c_first[r]).abs().max().item() for r in range(R)]
+    peak = [c_first[r].abs().max().item() for r in range(R)]
+    limits = [logits_limit(p, dtype) for p in peak]
+    print(f"prefill last-position logits, card vs CPU, {dtype}, by row: "
+          f"max|d| {json.dumps([float(f'{e:.4g}') for e in errs])}, limit "
+          f"{json.dumps([float(f'{x:.4g}') for x in limits])} (largest CPU "
+          f"|logit| {json.dumps([float(f'{p:.4g}') for p in peak])})")
+    check(all(math.isfinite(e) and e <= x for e, x in zip(errs, limits)),
           "card and CPU prefill logits disagree")
-    close = next((i for i, m in enumerate(margins) if m < near[i]), n)
-    matched = next((i for i in range(n) if g_toks[i] != c_toks[i]), n)
-    print(f"greedy tokens, card vs CPU: {matched}/{n} steps match; first "
-          f"CPU top-2 margin < {what} at step {close}")
+    compared = compared_steps(margins, peaks, dtype, cut)
+    equal = steps_equal(g_toks, c_toks)
+    what = (f"{FP32_MARGIN:g}" if dtype == torch.float32
+            else f"{BF16_REL:g} x the step's largest |logit|")
+    print(f"greedy tokens, card vs CPU, {dtype}: compared steps by row "
+          f"{compared} ({sum(compared)} of {R} x {len(margins)}; each row up "
+          f"to its first CPU top-2 margin < {what}"
+          f"{'' if cut is None else ' or its router near-tie'}); steps "
+          f"equal by "
+          f"row {equal}")
     if dtype != torch.float32:
-        print("CPU top-2 margins / largest |logit| by step: "
-              + json.dumps([m / p for m, p in zip(margins, peaks)]))
-    check(matched >= close, "greedy tokens diverge before a near-tie")
+        print("CPU top-2 margins / largest |logit| by step and row: "
+              + json.dumps([[float(f"{m / p:.4g}") for m, p in zip(ms, ps)]
+                            for ms, ps in zip(margins, peaks)]))
+    check(sum(compared) > 0, "the card-vs-CPU check compared no step")
+    check(tokens_hold(compared, equal),
+          "greedy tokens diverge before a near-tie")
+    return {"compared": compared, "equal": equal, "max_abs_err": errs,
+            "limit": limits}
+
+
+def cpu_prompt(cfg, S: int, dtype, cpu_run):
+    """Prompt seeds 0, 1, ... in turn, ``CARD_CPU_ROWS[dtype]`` prompts of
+    S tokens each (an audio model's K x S): ``cpu_run(prompt)`` gives the
+    CPU's ``greedy_trace``. The first seed whose CPU run leaves a step to
+    compare (``compared_steps``) is kept: (seed, prompt, trace). Fails
+    after ``CARD_CPU_SEEDS`` seeds."""
+    K = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    for seed in range(CARD_CPU_SEEDS):
+        prompt = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (CARD_CPU_ROWS[dtype], *K, S))
+        c_trace = cpu_run(prompt)
+        compared = compared_steps(c_trace[2], c_trace[3], dtype)
+        print(f"{cfg.name} card vs CPU, {dtype}, prompt seed {seed}: the CPU "
+              f"run leaves {compared} steps by row to compare")
+        if sum(compared):
+            return seed, prompt, c_trace
+    check(False, f"{cfg.name} card vs CPU: no prompt seed of "
+          f"{CARD_CPU_SEEDS} leaves a step to compare")
 
 
 def serve(eng, cfg, counters, watch=contextlib.nullcontext(), n_new=64):
@@ -736,6 +868,11 @@ def serve(eng, cfg, counters, watch=contextlib.nullcontext(), n_new=64):
               "decode_step_ms": res.decode_s / n_new * 1e3,
               "peak_device_gb": peak_gb,
               **engine_bounds(cfg, 4, 500, 1024, dtype)}
+    if dtype == torch.bfloat16:
+        # cuBLAS's bf16 GEMMs may reduce split sums in bf16 where this is
+        # on (PyTorch's default, which the serving path keeps)
+        engine["cublas_bf16_reduced_precision_reduction"] = \
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     return prompts, launches, engine
 
 
@@ -809,15 +946,16 @@ def in_path(fa, gm, model, tally: dict, trace: bool = False):
         del model.decode_step
     torch.cuda.synchronize()
     if trace:
-        pad = sum(1 for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and ("spin" in e.name or "sleep" in e.name))
+        # the trace's raw records: ``prof.events()`` would build a tree of
+        # every record of the run (minutes for Zamba2's 64 decode steps)
+        kernels = [(e.name(), e.start_ns(), e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+        pad = sum(1 for n, _, _ in kernels if "spin" in n or "sleep" in n)
         check(pad > 0, f"the trace kept none of its {PAD} spin kernels")
-        traced = {name: sorted(
-            (e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and part in e.name), key=lambda e: e.time_range.start)
-            for name, part in TRACED_KERNELS.items()}
+        traced = {name: sorted((k for k in kernels if part in k[0]),
+                               key=lambda k: k[1])
+                  for name, part in TRACED_KERNELS.items()}
         for name, kernels in traced.items():
             n = sum(1 for ev in events if ev[0] == name)
             if len(kernels) != n:
@@ -832,8 +970,7 @@ def in_path(fa, gm, model, tally: dict, trace: bool = False):
                                    "rows": None})
         t["launches"] += 1
         if trace:
-            t["traced_ms"] += traced[name][seen[name]].time_range.elapsed_us(
-                ) / 1e3
+            t["traced_ms"] += traced[name][seen[name]][2] / 1e6
             seen[name] += 1
         t["event_ms"] += start.elapsed_time(end)
         if name == "grouped_matmul":
@@ -845,7 +982,9 @@ def in_path(fa, gm, model, tally: dict, trace: bool = False):
 
 
 def traced_repeat(fa, gm, eng, prompts, n_new: int, tally: dict) -> None:
-    """The main run once more, same prompts, under torch.profiler: its
+    """The main run once more, same prompts (``n_new`` new tokens: the
+    main run's, or fewer where its kernels run in the prefill alone),
+    under torch.profiler: its
     K1 and K2 launches by phase and shape must equal the main run's
     ``tally``, and the device time of their kernels in the trace becomes
     ``tally[key]["traced_ms"]``. The main run itself is not traced: the
@@ -1002,7 +1141,11 @@ def family_engine_phase(fa, gm, cfg, n_new: int, dtype=torch.float32):
     check(launches["grouped_matmul"] == 0, f"the {cfg.name} path ran K2")
     check_k1_in_path(fa, cfg, tally, dtype)
     if n:
-        traced_repeat(fa, gm, eng, prompts, n_new, tally)
+        # K1 runs in the prefill alone (checked above), so the repeat
+        # serves the same prompts with one new token
+        t0 = time.perf_counter()
+        traced_repeat(fa, gm, eng, prompts, 1, tally)
+        engine["traced_repeat_s"] = time.perf_counter() - t0
     for key in ("traced_ms", "event_ms"):
         engine[f"k1_in_path_{key}"] = sum(
             t[key] for (name, _, _), t in tally.items()
@@ -1014,45 +1157,154 @@ def family_engine_phase(fa, gm, cfg, n_new: int, dtype=torch.float32):
     return tally, engine
 
 
-def card_vs_cpu(cfg, cut: dict, S: int, n: int = 16,
-                dtype=torch.float32) -> None:
-    """The path on the card against the port's CPU path at full width,
-    cut to ``cut`` (fewer layers, or nothing), on one set of weights in
-    ``dtype`` drawn from a CPU generator and copied: a 1 x S prompt (an
-    audio model's 1 x K x S) and ``n`` greedy tokens."""
+def card_and_cpu_params(cfg, dtype):
+    """One set of random weights in ``dtype`` on the card and on the CPU,
+    for a card-vs-CPU check: drawn on the card from a generator seeded 0
+    (the CPU draws billions of parameters too slowly), each tensor in fp32
+    and copied into ``dtype``, then copied to the CPU. Returns (model, the
+    card's weights, the CPU's)."""
     from repro_torch import build_model
 
-    cfg = cfg.replace(**cut)
     model = build_model(cfg)
     t0 = time.perf_counter()
-    cpu_params = model.init(torch.Generator().manual_seed(0), dtype,
-                            device="cpu")
-    gpu_params = type(cpu_params)(cfg, dtype, device="cuda")
-    gpu_params.load_state_dict(cpu_params.state_dict())
+    gpu_params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            dtype, device="cuda")
+    cpu_params = type(gpu_params)(cfg, dtype, device="cpu")
+    cpu_params.load_state_dict(gpu_params.state_dict())
     n_params = sum(p.numel() for p in cpu_params.parameters())
     print(f"{cfg.name} card vs CPU: {cfg.n_layers} layers, {n_params} params "
-          f"in {dtype} drawn on the CPU and copied: "
+          f"in {dtype} drawn on the card and copied to the CPU: "
           f"{time.perf_counter() - t0:.1f} s")
-    K = (cfg.n_codebooks,) if cfg.family == "audio" else ()
-    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, *K, S))
-    compare_card_cpu(greedy_trace(model, gpu_params, prompt, n, "cuda"),
-                     greedy_trace(model, cpu_params, prompt, n, "cpu"), n,
-                     dtype)
+    return model, gpu_params, cpu_params
+
+
+def card_vs_cpu(cfg, cut: dict, S: int, n: int = 16,
+                dtype=torch.float32) -> dict:
+    """The path on the card against the port's CPU path at full width,
+    cut to ``cut`` (fewer layers, or nothing), on one set of weights in
+    ``dtype`` (``card_and_cpu_params``): ``CARD_CPU_ROWS[dtype]`` prompts
+    of S tokens (an audio model's K x S) from the first prompt seed that
+    leaves a step to compare (``cpu_prompt``), and ``n`` greedy tokens,
+    held by ``compare_card_cpu``."""
+    cfg = cfg.replace(**cut)
+    model, gpu_params, cpu_params = card_and_cpu_params(cfg, dtype)
+    seed, prompt, c_trace = cpu_prompt(
+        cfg, S, dtype, lambda p: greedy_trace(model, cpu_params, p, n, "cpu"))
+    out = compare_card_cpu(greedy_trace(model, gpu_params, prompt, n, "cuda"),
+                           c_trace, dtype)
     del gpu_params
     torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "seed": seed, **out}
+
+
+@torch.inference_mode()
+def zamba2_layer_errors(cfg, cpu_params, params, tokens: torch.Tensor,
+                        n_dec: int) -> list:
+    """Zamba2 layer by layer on the CPU's inputs: ``tokens`` (R, S +
+    n_dec) are prefilled (the first S) and then decoded one at a time, as
+    the engine serves them (each side with a state of its own, the KV
+    cache in fp32); each layer of each of those forwards runs on the CPU
+    (``cpu_params``) and on ``params``'s device, both fed the CPU's output
+    of the layer before it, so a layer's difference is its own and not
+    the rounding the layers before it carried in. Returns, by forward (the
+    prefill, then each decode step) and layer, the worst row's max|d| /
+    ``logits_limit`` of the CPU's largest |value| in that row."""
+    from repro_torch.models import stacks
+
+    dev = next(params.parameters()).device
+    dtype = next(cpu_params.parameters()).dtype
+    R, S = tokens.shape[0], tokens.shape[1] - n_dec
+    states = [stacks.zamba2_state(cfg, R, S + n_dec, device=d)
+              for d in ("cpu", dev)]
+    worst = []
+    for f in range(n_dec + 1):
+        if f == 0:
+            toks, at = tokens[:, :S], None
+            pos = torch.arange(S, dtype=torch.int32)[None, :].expand(R, S)
+        else:
+            toks, at = tokens[:, S + f - 1:S + f], S + f - 1
+            pos = torch.full((R, 1), at, dtype=torch.int32)
+        x = stacks.embed(cpu_params.embed, toks)
+        by_layer = []
+        for i in range(cfg.n_layers):
+            want = stacks._zamba2_layer(cfg, cpu_params, i, x, pos,
+                                        states[0], at, f > 0, None)
+            got = stacks._zamba2_layer(cfg, params, i, x.to(dev),
+                                       pos.to(dev), states[1], at, f > 0,
+                                       None).cpu()
+            by_layer.append(max(
+                float((got[r] - want[r]).float().abs().max()
+                      / logits_limit(float(want[r].float().abs().max()),
+                                     dtype)) for r in range(R)))
+            x = want
+        worst.append(by_layer)
+    return worst
+
+
+def zamba2_layers_card_vs_cpu(fa, cfg, n_layers: int, S: int,
+                              dtype=torch.bfloat16) -> dict:
+    """Zamba2 at full width and ``n_layers`` layers (weights in ``dtype``
+    from ``card_and_cpu_params``), held layer by layer on the CPU's
+    inputs (``zamba2_layer_errors``): ``ZAMBA2_LAYER_ROWS`` prompts of S
+    tokens (prompt seed 0) prefilled, then ``ZAMBA2_LAYER_STEPS`` decode
+    steps (the shared block's attention on its KV cache, cast to
+    ``dtype``); every layer's output of every forward within
+    ``logits_limit``, and the prefill's shared-block applications on
+    K1."""
+    from repro_torch.models import stacks
+
+    cfg = cfg.replace(n_layers=n_layers)
+    _, gpu_params, cpu_params = card_and_cpu_params(cfg, dtype)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (ZAMBA2_LAYER_ROWS, S + ZAMBA2_LAYER_STEPS)))
+    k1 = fa.launches
+    worst = zamba2_layer_errors(cfg, cpu_params, gpu_params, tokens,
+                                ZAMBA2_LAYER_STEPS)
+    k1 = fa.launches - k1
+    for f, by_layer in enumerate(worst):
+        print(f"{cfg.name} {dtype} layer by layer, card vs CPU on the CPU's "
+              f"inputs, {'prefill' if f == 0 else f'decode step {f}'} "
+              f"({ZAMBA2_LAYER_ROWS} rows, {S} prompt tokens): max|d| / "
+              f"({BF16_REL:g} x the largest |value|), the worst row by layer "
+              f"{json.dumps([float(f'{e:.4g}') for e in by_layer])}")
+    check(all(math.isfinite(e) and e <= 1 for row in worst for e in row),
+          "zamba2 layer by layer: card and CPU outputs disagree")
+    check(k1 == stacks.n_attn_applications(cfg),
+          f"the layer-by-layer check made {k1} K1 launches")
+    del gpu_params
+    torch.cuda.empty_cache()
+    return {"layers": n_layers, "worst_by_layer": worst}
 
 
 @contextlib.contextmanager
-def each_moe_call(record):
+def each_moe_call(record, routes=None):
     """While active, every moe layer first calls ``record(p, cfg, x)``
-    with its parameters, config and input."""
-    from repro_torch.models import transformer
+    with its parameters, config and input. With ``routes``, an iterator
+    giving one (B, S, k) tensor of expert indices a call, the layer sends
+    each token to those experts instead of its own router's top k (its own
+    router probabilities still weigh them, and capacity drops follow the
+    given choices as they would its own)."""
+    from repro_torch.models import moe, transformer
 
-    real = transformer.moe_apply
+    real, probs = transformer.moe_apply, moe.router_probs
 
     def recording(p, cfg, x, *args, **kw):
         record(p, cfg, x)
-        return real(p, cfg, x, *args, **kw)
+        if routes is None:
+            return real(p, cfg, x, *args, **kw)
+        idx = next(routes).to(x.device)
+
+        def given(router, xg):   # every other expert below any router prob
+            pr = probs(router, xg)
+            chosen = torch.zeros_like(pr, dtype=torch.bool).scatter_(
+                -1, idx.reshape(*pr.shape[:2], -1), True)
+            return pr.masked_fill(~chosen, -1.0)
+
+        moe.router_probs = given
+        try:
+            return real(p, cfg, x, *args, **kw)
+        finally:
+            moe.router_probs = probs
 
     transformer.moe_apply = recording
     try:
@@ -1061,84 +1313,150 @@ def each_moe_call(record):
         transformer.moe_apply = real
 
 
-def relative_router_gaps(p, cfg, x) -> torch.Tensor:
+def router_gaps(p, cfg, x, relative: bool) -> torch.Tensor:
     """For each token of x (B, S, d), the gap between its k-th and
-    (k+1)-th router probabilities relative to the k-th: a gap within
-    bf16's rounding of the router logits is a top-k choice that can
-    flip. (``moe.topk_gap`` gives the smallest absolute gap.)"""
+    (k+1)-th router probabilities as ``moe_apply`` routes them (B, S),
+    with ``relative`` over the k-th: a gap within rounding is a top-k
+    choice that can flip. (``moe.topk_gap`` gives the smallest absolute
+    gap.)"""
     from repro_torch.models import moe
 
     k = cfg.n_experts_per_tok
     top = moe.router_probs(p.router, moe._grouped(x)).topk(k + 1,
                                                            dim=-1).values
-    return ((top[..., k - 1] - top[..., k]) / top[..., k - 1]).reshape(
+    gap = top[..., k - 1] - top[..., k]
+    return (gap / top[..., k - 1] if relative else gap).reshape(
         x.shape[:2]).float()
 
 
+def top_experts(p, cfg, x) -> torch.Tensor:
+    """The k experts ``moe_apply``'s router picks for each token of x
+    (B, S, d), (B, S, k) on the CPU; each row must be a routing group of
+    its own."""
+    from repro_torch.models import moe
+
+    xg = moe._grouped(x)
+    check(xg.shape[0] == x.shape[0], "a routing group spans more than one row")
+    return moe.router_probs(p.router, xg).topk(
+        cfg.n_experts_per_tok, dim=-1).indices.reshape(
+            *x.shape[:2], -1).cpu()
+
+
+def route_flips(cpu_idx: list, card_idx: list, gaps: list, n_layers: int,
+                reach: list) -> list:
+    """The tokens the card's router sent to other experts than the CPU's,
+    in the forwards whose inputs the two share: for row r the prefill and
+    the decode steps fed tokens both chose, forwards 0 .. ``reach[r]``.
+    Each argument holds one moe layer call's (B, S, ...) a list entry,
+    layer by layer, one forward after another (``top_experts``,
+    ``router_gaps``). Returns (forward, layer, row, position, the CPU's
+    router gap there) for each."""
+    out = []
+    for j, (c, g, gap) in enumerate(zip(cpu_idx, card_idx, gaps)):
+        f, i = divmod(j, n_layers)
+        differ = (c.sort(dim=-1).values != g.sort(dim=-1).values).any(dim=-1)
+        out += [(f, i, r, s, float(gap[r, s]))
+                for r, s in differ.nonzero().tolist() if f <= reach[r]]
+    return out
+
+
+def moe_router_cut(calls: list, n_layers: int, n: int, dtype):
+    """Per row, the first of ``n`` greedy steps whose logits a CPU router
+    near-tie can move directly, from ``calls``, each moe layer call's
+    ``router_gaps`` (rows, positions), layer by layer, one forward after
+    another (forward i gives step i's logits). fp32: an absolute gap below
+    ``FP32_ROUTER_GAP`` anywhere in the row's forward. bf16: a gap below
+    ``BF16_ROUTER_REL`` of the k-th probability in the last layer at the
+    compared position (the last prompt position, then each decode step's
+    token); the near-ties elsewhere are counted. Returns (cut, a note)."""
+    forwards = [calls[f * n_layers:(f + 1) * n_layers] for f in range(n)]
+    if dtype == torch.float32:
+        least = [torch.stack([c.amin(dim=1) for c in fw]).amin(dim=0).tolist()
+                 for fw in forwards]
+        cut = first_below(least, FP32_ROUTER_GAP)
+        return cut, (f"smallest CPU router gap between choices k and k+1 "
+                     f"over {len(calls)} layer calls "
+                     f"{min(float(c.min()) for c in calls):.3e}; first "
+                     f"step with one below {FP32_ROUTER_GAP:g} by row {cut}")
+    at = [fw[-1][:, -1].tolist() for fw in forwards]
+    cut = first_below(at, BF16_ROUTER_REL)
+    ties = sum(int((c < BF16_ROUTER_REL).sum()) for c in calls[:n * n_layers])
+    ties_at = sum(g < BF16_ROUTER_REL for step in at for g in step)
+    return cut, (f"CPU router gaps between choices k and k+1 relative to the "
+                 f"k-th over {len(calls)} layer calls: smallest "
+                 f"{min(float(c.min()) for c in calls):.3e}; at the compared "
+                 f"positions of the last layer smallest "
+                 f"{min(min(s) for s in at):.3e}, {ties_at} below "
+                 f"{BF16_ROUTER_REL:g}, first by row {cut}; "
+                 f"{ties - ties_at} near-ties elsewhere")
+
+
 def moe_card_vs_cpu(cfg, n_layers: int = 2, n: int = 16,
-                    dtype=torch.float32) -> None:
+                    dtype=torch.float32) -> dict:
     """The moe path on the card against the port's CPU path at full
     width and ``n_layers`` layers, on one set of weights in ``dtype``
-    drawn from a CPU generator. A 1 x 256 prompt (Tg = 256 > 128, so
-    tokens can drop) and ``n`` greedy tokens. A prompt whose CPU routing
-    has a near-tie that can flip a choice is swapped for the next seed
-    (at most 3): fp32, a top-k gap below 1e-6 anywhere; bf16, a gap below
-    ``BF16_ROUTER_REL`` of the k-th probability where a flip reaches the
-    compared logits directly: in the last layer, at the last prompt
-    position and every decode step. The near-ties elsewhere (earlier
-    layers, other positions: their effect passes through the layers
-    after them) are counted and printed."""
-    from repro_torch import build_model
-    from repro_torch.models import moe, transformer
-
+    (``card_and_cpu_params``). ``CARD_CPU_ROWS[dtype]`` prompts of 256
+    tokens (each row a routing group of its own: Tg = 256 > 128, so tokens
+    can drop) and ``n`` greedy tokens. Each row is compared up to its
+    first CPU near-tie and its first CPU router near-tie
+    (``moe_router_cut``); prompt seeds 0, 1, ... in turn while no step is
+    left to compare, failing after ``CARD_CPU_SEEDS``. Every moe layer on
+    the card takes the CPU's expert choices (``each_moe_call``): a choice
+    that rounding flips sends a token to other experts, a difference no
+    limit on the logits can hold. The card's own choices are held beside
+    the CPU's (``route_flips``): in fp32 a flip where the CPU's gap is at
+    least ``FP32_ROUTER_GAP`` fails; in bf16 the flips are counted."""
     cfg = cfg.replace(n_layers=n_layers)
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    cpu_params = model.init(torch.Generator().manual_seed(0), dtype,
-                            device="cpu")
-    gpu_params = transformer.Transformer(cfg, dtype, device="cuda")
-    gpu_params.load_state_dict(cpu_params.state_dict())
-    n_params = sum(p.numel() for p in cpu_params.parameters())
-    print(f"moe card vs CPU: {n_layers} layers, {n_params} params in {dtype} "
-          f"drawn on the CPU and copied: {time.perf_counter() - t0:.1f} s")
-    for seed in range(3):
+    model, gpu_params, cpu_params = card_and_cpu_params(cfg, dtype)
+    relative = dtype != torch.float32
+    for seed in range(CARD_CPU_SEEDS):
         prompt = np.random.default_rng(seed).integers(
-            0, cfg.vocab_size, (1, 256))
-        if dtype == torch.float32:
-            gaps: list = []
-            with each_moe_call(lambda p, c, x: gaps.append(
-                    moe.topk_gap(p, c, x))):
-                c_trace = greedy_trace(model, cpu_params, prompt, n, "cpu")
-            print(f"prompt seed {seed}: smallest CPU router gap between "
-                  f"choices k and k+1 over {len(gaps)} layer calls: "
-                  f"{min(gaps):.3e}")
-            if min(gaps) >= 1e-6:
-                break
-            continue
-        calls: list = []
-        with each_moe_call(lambda p, c, x: calls.append(
-                relative_router_gaps(p, c, x))):
+            0, cfg.vocab_size, (CARD_CPU_ROWS[dtype], 256))
+        gaps, c_idx = [], []
+
+        def on_cpu(p, c, x):
+            gaps.append(router_gaps(p, c, x, relative))
+            c_idx.append(top_experts(p, c, x))
+
+        with each_moe_call(on_cpu):
             c_trace = greedy_trace(model, cpu_params, prompt, n, "cpu")
-        # calls run layer by layer, one forward after another
-        last = [c[:, -1] for i, c in enumerate(calls)
-                if i % n_layers == n_layers - 1]
-        compared = torch.cat(last)
-        ties = sum(int((c < BF16_ROUTER_REL).sum()) for c in calls)
-        ties_compared = int((compared < BF16_ROUTER_REL).sum())
-        print(f"prompt seed {seed}: CPU router gaps between choices k and "
-              f"k+1 relative to the k-th, over {len(calls)} layer calls: "
-              f"smallest {min(float(c.min()) for c in calls):.3e}; at the "
-              f"{compared.numel()} compared positions of the last layer "
-              f"smallest {float(compared.min()):.3e}, {ties_compared} below "
-              f"{BF16_ROUTER_REL:g}; {ties - ties_compared} near-ties "
-              f"elsewhere")
-        if ties_compared == 0:
+        cut, note = moe_router_cut(gaps, n_layers, n, dtype)
+        left = compared_steps(c_trace[2], c_trace[3], dtype, cut)
+        print(f"moe {dtype}, prompt seed {seed}: {note}; compared steps by "
+              f"row {left}")
+        if sum(left):
             break
-    print(f"moe card vs CPU holds prompt seed {seed}")
-    compare_card_cpu(greedy_trace(model, gpu_params, prompt, n, "cuda"),
-                     c_trace, n, dtype)
+    else:
+        check(False, f"moe card vs CPU ({dtype}): no prompt seed of "
+              f"{CARD_CPU_SEEDS} leaves a step to compare")
+    g_idx = []
+    with each_moe_call(lambda p, c, x: g_idx.append(top_experts(p, c, x)),
+                       routes=iter(c_idx)):
+        g_trace = greedy_trace(model, gpu_params, prompt, n, "cuda")
+    check(len(g_idx) == len(c_idx) == (n + 1) * n_layers,
+          f"moe card vs CPU: {len(g_idx)} card and {len(c_idx)} CPU moe "
+          f"layer calls")
+    flips = route_flips(c_idx, g_idx, gaps, n_layers,
+                        steps_equal(g_trace[1], c_trace[1]))
+    wide = [t for t in flips if t[-1] >= FP32_ROUTER_GAP]
+    print(f"moe {dtype}: the card's own router chose other experts than "
+          f"the CPU's for {len(flips)} tokens of the forwards both fed the "
+          f"same tokens (by forward: "
+          f"{dict(sorted(collections.Counter(t[0] for t in flips).items()))}"
+          f"); largest CPU router gap among them "
+          f"{max((t[-1] for t in flips), default=0.0):.3e}"
+          f"{' (relative to the k-th)' if relative else ''}; the card served "
+          f"the CPU's choices")
+    if dtype == torch.float32:
+        check(not wide, f"moe card vs CPU: the card's router flips "
+              f"{len(wide)} choices whose CPU gap is at least "
+              f"{FP32_ROUTER_GAP:g}: (forward, layer, row, position, gap) "
+              f"{wide[:8]}")
+    out = compare_card_cpu(g_trace, c_trace, dtype, cut)
     del gpu_params
     torch.cuda.empty_cache()
+    return {"layers": n_layers, "seed": seed, "router_cut": cut,
+            "route_flips": len(flips), **out}
 
 
 def device_kernels(fn, top: int = 3) -> dict:
@@ -1288,10 +1606,9 @@ def k2_rows(gm, ref, cfg, tally: dict, dtype) -> list:
 
 def timing_phase(fa, gm, ref, tallies, cfgs):
     """The ``kernels`` line: K1 at the prefill shape of every served model
-    that has attention (qwen2-0.5b, qwen2-moe-a2.7b, zamba2-7b,
-    internvl2-1b, musicgen-large) in fp32 and of the two served in bf16
-    (qwen2-0.5b, qwen2-moe-a2.7b), and K2 at each of the moe path's four
-    shapes in fp32 and in bf16, each with its launches on its model's
+    that has attention (all in ``tallies`` but xlstm-350m) in each dtype
+    it was served in (fp32 rows first), and K2 at each of the moe path's
+    four shapes in fp32 and in bf16, each with its launches on its model's
     main path in its dtype (``tallies[(name, dtype)]``) and its device
     time per launch in that run, from the trace of its repeat
     (``in_path_ms``; ``in_path_event_ms`` from CUDA events around each
@@ -1300,21 +1617,13 @@ def timing_phase(fa, gm, ref, tallies, cfgs):
     ``torch.bmm``; its rows name the variant that ran. A K2 row also
     carries, per launch of the main run: its time alone with the run's
     rows (``in_path_alone_ms``), the least time those rows need on each
-    route (``in_path_bound_*``), and the mean active experts and rows.
-    K1 in bf16 at Zamba2's shape (no bf16 main path) is printed on a line
-    of its own."""
+    route (``in_path_bound_*``), and the mean active experts and rows."""
     moe_cfg = cfgs["qwen2-moe-a2.7b"]
     f32, bf16 = torch.float32, torch.bfloat16
-    kernels = [k1_row(fa, ref, name, prefill_attention(cfgs[name]), f32,
-                      tallies[(name, f32)])
-               for name in ("qwen2-0.5b", moe_cfg.name, "zamba2-7b",
-                            "internvl2-1b", "musicgen-large")]
-    kernels += [k1_row(fa, ref, name, prefill_attention(cfgs[name]), bf16,
-                       tallies[(name, bf16)])
-                for name in ("qwen2-0.5b", moe_cfg.name)]
-    print("kernel timing, bf16 (no bf16 main path at this shape): "
-          + json.dumps(k1_row(fa, ref, "zamba2-7b",
-                              prefill_attention(cfgs["zamba2-7b"]), bf16)))
+    kernels = [k1_row(fa, ref, name, prefill_attention(cfgs[name]), dtype,
+                      tallies[(name, dtype)])
+               for dtype in (f32, bf16) for name, d in tallies
+               if d == dtype and attention_layers(cfgs[name])]
     for dtype in (f32, bf16):
         kernels += k2_rows(gm, ref, moe_cfg, tallies[(moe_cfg.name, dtype)],
                            dtype)
@@ -1866,8 +2175,9 @@ def main() -> int:
 
     cfgs = {k: ARCHS[k] for k in ("qwen2-0.5b", "qwen2-moe-a2.7b",
                                   "zamba2-7b", "internvl2-1b",
-                                  "musicgen-large", "xlstm-350m")}
-    moe_cfg, zamba_cfg = cfgs["qwen2-moe-a2.7b"], cfgs["zamba2-7b"]
+                                  "musicgen-large", "xlstm-350m",
+                                  "qwen3-14b", "minicpm-2b")}
+    moe_cfg = cfgs["qwen2-moe-a2.7b"]
     kernel_phase(fa, gm, ref, cfgs)
     phase_done("kernels against their plain versions")
     # tallies and engines by (model, dtype)
@@ -1888,23 +2198,31 @@ def main() -> int:
         phase_done(f"moe engine, {dtype}")
         moe_card_vs_cpu(moe_cfg, dtype=dtype)
         phase_done(f"moe card vs CPU, {dtype}")
-    # zamba2-7b at full width and depth
-    key = (zamba_cfg.name, f32)
-    tallies[key], engines[key] = family_engine_phase(
-        fa, gm, zamba_cfg, n_new=64)
-    phase_done("zamba2 engine")
-    card_vs_cpu(zamba_cfg, dict(n_layers=12), S=300)
-    phase_done("zamba2 card vs CPU")
-    # the other families, 16 new tokens each; the card-vs-CPU cuts keep
-    # 2 layers (for xLSTM one mLSTM and one sLSTM block)
-    for arch, cut in (("internvl2-1b", dict(n_layers=2)),
-                      ("musicgen-large", dict(n_layers=2)),
-                      ("xlstm-350m", dict(n_layers=2,
-                                          xlstm_pattern=("m", "s")))):
-        tallies[(arch, f32)], engines[(arch, f32)] = family_engine_phase(
-            fa, gm, cfgs[arch], n_new=16)
-        card_vs_cpu(cfgs[arch], cut, S=256)
-        phase_done(f"{arch} engine and card vs CPU")
+    # the other models at full width and depth, each in fp32 and in bf16:
+    # (name, new tokens, the card-vs-CPU check's prompt length and its cut
+    # in fp32 and in bf16, and the layers held one by one in bf16).
+    # Zamba2's fp32 cut keeps two applications of the shared block and its
+    # 300-token prompts two SSD chunks; in bf16 those 12 layers are held
+    # one by one, and the whole at ZAMBA2_BF16_LAYERS (see there). xLSTM's
+    # cut keeps one mLSTM and one sLSTM block.
+    two, xl = dict(n_layers=2), dict(n_layers=2, xlstm_pattern=("m", "s"))
+    for arch, n_new, S, f32_cut, bf16_cut, by_layer in (
+            ("zamba2-7b", 64, 300, dict(n_layers=12),
+             dict(n_layers=ZAMBA2_BF16_LAYERS), 12),
+            ("internvl2-1b", 16, 256, two, two, 0),
+            ("musicgen-large", 16, 256, two, two, 0),
+            ("xlstm-350m", 16, 256, xl, xl, 0),
+            ("qwen3-14b", 16, 256, two, two, 0),
+            ("minicpm-2b", 16, 256, two, two, 0)):
+        for dtype, cut in ((f32, f32_cut), (bf16, bf16_cut)):
+            key = (arch, dtype)
+            tallies[key], engines[key] = family_engine_phase(
+                fa, gm, cfgs[arch], n_new, dtype)
+            phase_done(f"{arch} engine, {dtype}")
+            if by_layer and dtype == bf16:
+                zamba2_layers_card_vs_cpu(fa, cfgs[arch], by_layer, S)
+            card_vs_cpu(cfgs[arch], cut, S, dtype=dtype)
+            phase_done(f"{arch} card vs CPU, {dtype}")
     train_phase(fa, gm, dense_cfg)
     phase_done("training")
     mesh_phase(fa, gm, dense_cfg)
@@ -1929,14 +2247,14 @@ def main() -> int:
               f"({100 * ms / engine['prefill_ms']:.1f}%); by CUDA events in "
               f"the run {row['in_path_event_ms']:.4f} ms a launch; time alone "
               f"{row['ms']:.4f} ms")
-    for name, dtype in dtypes.items():
+    for dname, dtype in dtypes.items():
         moe_engine = engines[(moe_cfg.name, dtype)]
         for phase, total in (("prefill", moe_engine["prefill_ms"]),
                              ("decode", moe_engine["decode_step_ms"] * 64)):
             ms = moe_engine["k2_in_path_traced_ms"][phase]
             alone = sum(r["in_path_alone_ms"] * r["launches"] for r in kernels
-                        if r.get("phase") == phase and r["dtype"] == name)
-            print(f"moe {name} {phase} time in grouped_matmul, traced in a "
+                        if r.get("phase") == phase and r["dtype"] == dname)
+            print(f"moe {dname} {phase} time in grouped_matmul, traced in a "
                   f"repeat of the main run: {ms:.3f} ms of {total:.2f} ms "
                   f"({100 * ms / total:.1f}%); by CUDA events in the run "
                   f"{moe_engine['k2_in_path_event_ms'][phase]:.3f} ms; "

@@ -1,7 +1,10 @@
 """Serving in bf16, the port against the reference on the CPU: one
 config of each family at smoke size (dense ``qwen2-0.5b``, moe, hybrid
 ``zamba2-7b``, ssm ``xlstm-350m``, audio ``musicgen-large`` and vlm
-``internvl2-1b``), each served by the port's ``ServeEngine`` from
+``internvl2-1b``), the dense ``qwen3-14b`` (qk-norm) and ``minicpm-2b``
+(tied embeddings), and two narrow cuts at head layouts the card serves
+(``CUTS``: qwen3-14b's GQA groups of 5 at hd 128 with qk-norm, Zamba2's
+hd 112), each served by the port's ``ServeEngine`` from
 ``params_from_jax`` of the reference's bf16 weights, against
 ``ServeEngine(dtype=jnp.bfloat16)`` of the reference.
 
@@ -36,17 +39,34 @@ from repro_torch.configs import SMOKES
 from repro_torch.convert import params_from_jax
 from repro_torch.serve.engine import ServeEngine
 
+# Smoke configs widened to a head layout of a full-width model, as the
+# card serves it: (smoke config, fields replaced in both packages)
+CUTS = {
+    "qwen3-14b-gqa5-hd128": ("qwen3-14b", dict(
+        d_model=640, n_heads=10, n_kv_heads=2, d_head=128, d_ff=512)),
+    "zamba2-7b-hd112": ("zamba2-7b", dict(
+        d_model=448, n_heads=4, n_kv_heads=4, d_head=112, d_ff=512,
+        ssm_heads=14, ssm_head_dim=64)),
+}
 ARCHS = ["qwen2-0.5b", "qwen2-moe-a2.7b", "zamba2-7b", "xlstm-350m",
-         "musicgen-large", "internvl2-1b"]
+         "musicgen-large", "internvl2-1b", "qwen3-14b", "minicpm-2b",
+         *CUTS]
 REL = 2.0 ** -5
 B, S, N_NEW, MAX_SEQ = 2, 40, 8, 64
+
+
+def _configs(arch):
+    """The port's config and the reference's of a case of ``ARCHS``."""
+    name, fields = CUTS.get(arch, (arch, {}))
+    return (SMOKES[name].replace(**fields),
+            J_SMOKES[name].replace(**fields))
 
 
 @functools.lru_cache(maxsize=None)
 def _engines(arch):
     """The reference's bf16 engine and the port's on its weights."""
-    cfg = SMOKES[arch]
-    j = JServeEngine(J_SMOKES[arch], max_seq=MAX_SEQ, dtype=jnp.bfloat16)
+    cfg, j_cfg = _configs(arch)
+    j = JServeEngine(j_cfg, max_seq=MAX_SEQ, dtype=jnp.bfloat16)
     t = ServeEngine(cfg, params=params_from_jax(
         cfg, jax.tree.map(np.asarray, j.params), device="cpu"),
         max_seq=MAX_SEQ, device="cpu")
@@ -54,7 +74,7 @@ def _engines(arch):
 
 
 def _prompt(arch, seed=0):
-    cfg = SMOKES[arch]
+    cfg = _configs(arch)[0]
     K = (cfg.n_codebooks,) if cfg.family == "audio" else ()
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, *K, S)).astype(np.int32)
@@ -98,7 +118,7 @@ def _reference_trace(j, prompt):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bf16_engine_matches_reference_engine(arch):
-    cfg = SMOKES[arch]
+    cfg = _configs(arch)[0]
     j, t = _engines(arch)
     # bf16, apart from what the reference keeps in fp32 (Mamba2's A_log,
     # D and dt_bias)

@@ -144,11 +144,12 @@ def test_kernel_stays_within_its_sequence(hopper, hd, dtype, causal, kind):
 
 
 # The prefill shapes of the served models: qwen2-0.5b, qwen2-moe-a2.7b,
-# zamba2-7b's shared block, internvl2-1b (S = 756 with its patches) and
-# musicgen-large.
+# zamba2-7b's shared block, internvl2-1b (S = 756 with its patches),
+# musicgen-large, qwen3-14b (GQA groups of 5 at hd 128) and minicpm-2b.
 MAIN_PATH_SHAPES = [(4, 500, 500, 14, 2, 64), (4, 500, 500, 16, 16, 128),
                     (4, 500, 500, 32, 32, 112), (4, 756, 756, 14, 2, 64),
-                    (4, 500, 500, 32, 32, 64)]
+                    (4, 500, 500, 32, 32, 64), (4, 500, 500, 40, 8, 128),
+                    (4, 500, 500, 36, 36, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -620,6 +621,66 @@ def test_zamba2_engine_card_matches_cpu(hopper):
     assert fa.launches == before + cfg.n_layers // cfg.hybrid_attn_every
     b = cpu.generate(prompt, n_new=8)
     np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+# Small models of each family at head dims K1 takes, served in bf16
+BF16_FAMILIES = {
+    "hybrid": SMOKES["zamba2-7b"].replace(
+        d_model=448, n_heads=4, n_kv_heads=4, d_head=112, d_ff=512,
+        ssm_heads=14, ssm_head_dim=64),
+    "ssm": SMOKES["xlstm-350m"],
+    "audio": SMOKES["musicgen-large"].replace(
+        d_model=256, n_heads=4, n_kv_heads=4, d_head=64, d_ff=512),
+    "vlm": SMOKES["internvl2-1b"].replace(
+        d_model=256, n_heads=4, n_kv_heads=2, d_head=64, d_ff=512),
+    "gqa5_hd128": SMOKES["qwen3-14b"].replace(
+        d_model=640, n_heads=5, n_kv_heads=1, d_head=128, d_ff=512),
+}
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: its card-vs-CPU rule."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("family", list(BF16_FAMILIES))
+def test_bf16_engine_card_matches_cpu(hopper, family):
+    """A small bf16 model of each family served on the card against the
+    CPU path from the same weights, under chip_smoke.py's rule: the
+    last-position prefill logits within 2^-5 of the largest |logit|, and
+    the tokens of each of 16 prompts equal up to that row's first CPU
+    near-tie, with at least one step compared (the prompt seed changes,
+    at most 3 times, while none is). Every prefill attention on K1's
+    bf16 variant."""
+    from repro_torch import build_model
+    from repro_torch.models.stacks import n_attn_applications
+
+    cs = _chip_smoke()
+    cfg = BF16_FAMILIES[family]
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), torch.bfloat16,
+                     device="cpu")
+    gpu = type(cpu)(cfg, torch.bfloat16, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    _, prompt, c_trace = cs.cpu_prompt(
+        cfg, 140, torch.bfloat16,
+        lambda p: cs.greedy_trace(model, cpu, p, 8, "cpu"))
+    before = dict(fa.route_launches)
+    g_trace = cs.greedy_trace(model, gpu, prompt, 8, "cuda")
+    ran = {r: n - before[r] for r, n in fa.route_launches.items()
+           if n != before[r]}
+    attn = {"hybrid": n_attn_applications(cfg), "ssm": 0}.get(
+        cfg.family, cfg.n_layers)
+    assert ran == ({"flash_wgmma_bf16": attn} if attn else {})
+    out = cs.compare_card_cpu(g_trace, c_trace, torch.bfloat16)
+    assert sum(out["compared"]) > 0
 
 
 def _train(cfg, device, **kw):
