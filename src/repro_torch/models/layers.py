@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (cp_on_shards, gqa_on_shards,
                                               kv_heads, kv_whole, pin_batch,
@@ -242,44 +243,51 @@ def attention_apply(
     version on CPU tensors) at every S; False and True are the
     reference's training routes, the masked ``_sdpa``, or with True
     ``_sdpa_chunked`` at S >= 256 ("cp": context parallel). The kernel
-    has no backward, so training never takes it.
+    has no backward, so training never takes it. While a profiler is
+    active it records the detail spans ``attn.qkv``, ``attn.cache_write``
+    and ``attn.core`` (``repro_torch.obs``).
     """
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    with obs.detail("attn.qkv"):
+        q, k, v = _project_qkv(p, cfg, x, positions)
     new_cache = None
     if cache is not None and cache_index is not None and S == 1:
         k_cache, v_cache = cache
-        write_at(k_cache, cache_index,
-                 kv_whole(k, cfg.n_kv_heads).to(k_cache.dtype))
-        write_at(v_cache, cache_index,
-                 kv_whole(v, cfg.n_kv_heads).to(v_cache.dtype))
+        with obs.detail("attn.cache_write"):
+            write_at(k_cache, cache_index,
+                     kv_whole(k, cfg.n_kv_heads).to(k_cache.dtype))
+            write_at(v_cache, cache_index,
+                     kv_whole(v, cfg.n_kv_heads).to(v_cache.dtype))
         new_cache = (k_cache, v_cache)
         T = k_cache.shape[1]
-        # low-precision KV caches are upcast at read; scores/softmax
-        # math stays in the compute dtype
-        kc, vc = k_cache.to(q.dtype), v_cache.to(q.dtype)
-        if seq_sharded(k_cache):      # a batch-1 cache sharded on its sequence
-            out = seq_on_shards(_sdpa_parts, q, kc, vc, cache_index)
-        else:
-            valid = torch.arange(T, device=x.device) <= cache_index
-            out = gqa_on_shards(_sdpa, q, kc, vc, valid)
+        with obs.detail("attn.core"):
+            # low-precision KV caches are upcast at read; scores/softmax
+            # math stays in the compute dtype
+            kc, vc = k_cache.to(q.dtype), v_cache.to(q.dtype)
+            if seq_sharded(k_cache):  # a batch-1 cache sharded on its sequence
+                out = seq_on_shards(_sdpa_parts, q, kc, vc, cache_index)
+            else:
+                valid = torch.arange(T, device=x.device) <= cache_index
+                out = gqa_on_shards(_sdpa, q, kc, vc, valid)
     else:
-        if causal and use_flash is None:
-            out = kops.flash_attention(q, k, v, causal=True)
-        elif causal and use_flash == "cp" and S >= 256:
-            out = _sdpa_chunked(q, k, v, context_parallel=True)
-        elif causal and use_flash and S >= 256:
-            out = gqa_on_shards(_sdpa_chunked, q, k, v)
-        elif causal:
-            mask = torch.ones((S, S), dtype=torch.bool,
-                              device=x.device).tril()[None, None, None]
-            out = gqa_on_shards(_sdpa, q, k, v, mask)
-        else:
-            out = gqa_on_shards(_sdpa, q, k, v, None)
+        with obs.detail("attn.core"):
+            if causal and use_flash is None:
+                out = kops.flash_attention(q, k, v, causal=True)
+            elif causal and use_flash == "cp" and S >= 256:
+                out = _sdpa_chunked(q, k, v, context_parallel=True)
+            elif causal and use_flash and S >= 256:
+                out = gqa_on_shards(_sdpa_chunked, q, k, v)
+            elif causal:
+                mask = torch.ones((S, S), dtype=torch.bool,
+                                  device=x.device).tril()[None, None, None]
+                out = gqa_on_shards(_sdpa, q, k, v, mask)
+            else:
+                out = gqa_on_shards(_sdpa, q, k, v, None)
         if cache is not None:
             k_cache, v_cache = cache
-            k_cache[:, :S] = kv_whole(k, cfg.n_kv_heads).to(k_cache.dtype)
-            v_cache[:, :S] = kv_whole(v, cfg.n_kv_heads).to(v_cache.dtype)
+            with obs.detail("attn.cache_write"):
+                k_cache[:, :S] = kv_whole(k, cfg.n_kv_heads).to(k_cache.dtype)
+                v_cache[:, :S] = kv_whole(v, cfg.n_kv_heads).to(v_cache.dtype)
             new_cache = (k_cache, v_cache)
     out = project(reshape(out, B, S, cfg.d_q), p.wo, out_like=x)
     return out, new_cache

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import maybe_constrain, mesh_axes
 from repro_torch.kernels import ops as kops
@@ -187,6 +188,12 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     A DTensor ``x`` (sharded params) takes ``_moe_apply_sharded``: the
     routing runs on each device's own groups, the experts as einsums on
     DTensors.
+
+    Inside a ``generate`` call the plain route counts its routed
+    assignments, kept rows and slots into the call's record
+    (``repro_torch.obs``); the detail spans ``moe.route``,
+    ``moe.experts``, ``moe.combine`` and ``moe.shared`` are recorded
+    while a profiler is active.
     """
     B, S, d = x.shape
     E = cfg.n_experts
@@ -195,24 +202,31 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor,
         return _moe_apply_sharded(p, cfg, x, G, capacity_factor)
     xg = x.reshape(G, B * S // G, d)
     C = capacity(cfg, xg.shape[1], capacity_factor)
-    h, slot, keep, gate_vals, probs, expert_idx, rows = _dispatch(
-        p.router, cfg, xg, C)
-    density, mean_prob = _balance(probs, expert_idx, E)
-    aux_loss = E * torch.sum(density * mean_prob)
-    h = maybe_constrain(h, None, ("pod", "data"), None)
+    with obs.detail("moe.route"):
+        h, slot, keep, gate_vals, probs, expert_idx, rows = _dispatch(
+            p.router, cfg, xg, C)
+        call = obs.RECORDER.open_call
+        if call is not None:
+            call.count_moe(rows, B * S * cfg.n_experts_per_tok, E * G * C)
+        density, mean_prob = _balance(probs, expert_idx, E)
+        aux_loss = E * torch.sum(density * mean_prob)
+        h = maybe_constrain(h, None, ("pod", "data"), None)
 
     # --- grouped expert GEMMs (kernel K2 on CUDA, or einsums) ---
-    if einsum:
-        y_e = _experts_einsum(p, h)
-    else:
-        g_ = F.silu(kops.grouped_matmul(h, p.w_gate, rows))
-        u = kops.grouped_matmul(h, p.w_up, rows)
-        y_e = kops.grouped_matmul(g_ * u, p.w_down, rows)    # (E, GC, d)
-    y_e = maybe_constrain(y_e, None, ("pod", "data"), None)
+    with obs.detail("moe.experts"):
+        if einsum:
+            y_e = _experts_einsum(p, h)
+        else:
+            g_ = F.silu(kops.grouped_matmul(h, p.w_gate, rows))
+            u = kops.grouped_matmul(h, p.w_up, rows)
+            y_e = kops.grouped_matmul(g_ * u, p.w_down, rows)  # (E, GC, d)
+        y_e = maybe_constrain(y_e, None, ("pod", "data"), None)
 
-    y = _combine(y_e, slot, keep, gate_vals, x.dtype).reshape(B, S, d)
+    with obs.detail("moe.combine"):
+        y = _combine(y_e, slot, keep, gate_vals, x.dtype).reshape(B, S, d)
     if p.shared is not None:
-        y = y + L.mlp_apply(p.shared, cfg.replace(mlp_gated=True), x)
+        with obs.detail("moe.shared"):
+            y = y + L.mlp_apply(p.shared, cfg.replace(mlp_gated=True), x)
     return y, aux_loss
 
 

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (embed, pin_residual,
                                               residual_add, split_codebooks,
@@ -117,17 +118,20 @@ def _layer_apply(cfg: ModelConfig, p_l: Block, x: torch.Tensor,
                  cache_index: Optional[int], use_flash: Optional[bool]
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer: (x, its MoE load-balancing loss, or None for an MLP)."""
-    h = L.rmsnorm(p_l.attn_norm, x, cfg.norm_eps)
-    attn_out, _ = L.attention_apply(
-        p_l.attn, cfg, h, positions, cache=cache_l,
-        cache_index=cache_index, causal=True, use_flash=use_flash)
-    x = residual_add(x, attn_out)
-    h = L.rmsnorm(p_l.mlp_norm, x, cfg.norm_eps)
-    if cfg.family == "moe":
-        out, aux = moe_apply(p_l.moe, cfg, h, einsum=use_flash is not None)
-    else:
-        out, aux = L.mlp_apply(p_l.mlp, cfg, h), None
-    return residual_add(x, out), aux
+    with obs.detail("attention"):
+        h = L.rmsnorm(p_l.attn_norm, x, cfg.norm_eps)
+        attn_out, _ = L.attention_apply(
+            p_l.attn, cfg, h, positions, cache=cache_l,
+            cache_index=cache_index, causal=True, use_flash=use_flash)
+        x = residual_add(x, attn_out)
+    moe = cfg.family == "moe"
+    with obs.detail("moe" if moe else "mlp"):
+        h = L.rmsnorm(p_l.mlp_norm, x, cfg.norm_eps)
+        if moe:
+            out, aux = moe_apply(p_l.moe, cfg, h, einsum=use_flash is not None)
+        else:
+            out, aux = L.mlp_apply(p_l.mlp, cfg, h), None
+        return residual_add(x, out), aux
 
 
 # ----------------------------------------------------------------------
@@ -148,18 +152,22 @@ def forward(
     ``patch_embeds`` (B, n_patches, d) take the first positions.
     ``use_flash`` None takes the serving routes (kernels K1 and K2);
     False or True the reference's training routes (see
-    ``layers.attention_apply``; the experts as einsums)."""
-    x = pin_residual(_embed_tokens(p, cfg, tokens), p.embed)
-    if cfg.family == "vlm" and patch_embeds is not None:
-        x = pin_residual(torch.cat([patch_embeds.to(x.dtype), x], dim=1),
-                         p.embed)
-    B, S = x.shape[0], x.shape[1]
-    if cache_index is not None:
-        positions = torch.full((B, 1), cache_index, dtype=torch.int32,
-                               device=x.device)
-    else:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device)[None, :].expand(B, S)
+    ``layers.attention_apply``; the experts as einsums). While a
+    profiler is active it records the detail spans ``embed``,
+    ``attention`` and ``mlp`` or ``moe`` a layer, and ``unembed``
+    (``repro_torch.obs``)."""
+    with obs.detail("embed"):
+        x = pin_residual(_embed_tokens(p, cfg, tokens), p.embed)
+        if cfg.family == "vlm" and patch_embeds is not None:
+            x = pin_residual(torch.cat([patch_embeds.to(x.dtype), x], dim=1),
+                             p.embed)
+        B, S = x.shape[0], x.shape[1]
+        if cache_index is not None:
+            positions = torch.full((B, 1), cache_index, dtype=torch.int32,
+                                   device=x.device)
+        else:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p_l in enumerate(p.layers):
         cache_l = None if cache is None else (cache[0][i], cache[1][i])
@@ -171,12 +179,13 @@ def forward(
         x = pin_residual(x, p.embed)
         if aux_l is not None:
             aux = aux + aux_l
-    if last_only:
-        # serving prefill wants next-token logits only: slicing BEFORE
-        # the unembed avoids materializing (B, S, V) logits.
-        x = x[:, -1:]
-    x = L.rmsnorm(p.final_norm, x, cfg.norm_eps)
-    return _unembed(p, cfg, x), cache, aux
+    with obs.detail("unembed"):
+        if last_only:
+            # serving prefill wants next-token logits only: slicing BEFORE
+            # the unembed avoids materializing (B, S, V) logits.
+            x = x[:, -1:]
+        x = L.rmsnorm(p.final_norm, x, cfg.norm_eps)
+        return _unembed(p, cfg, x), cache, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,

@@ -11,10 +11,15 @@ hold ``n_patches + S + n_new``. The reference engine decodes at
 ``S + i``, which overwrites prefilled keys and gives the new token the
 wrong RoPE position; its own model test decodes at ``S + n_patches``,
 as this engine does.
+
+Every call is recorded by ``repro_torch.obs``: a ``generate`` span
+around ``init_cache``, ``prefill``, one ``decode_step`` per step (the
+host's enqueue of it) and ``to_host``. ``prefill_s`` is the ``prefill``
+span's duration, ``decode_s`` runs from the first ``decode_step`` to the
+end of ``to_host``.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
@@ -22,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike, obs, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.registry import Model, build_model
 
@@ -30,7 +35,7 @@ from repro_torch.models.registry import Model, build_model
 @dataclass
 class GenerationResult:
     tokens: np.ndarray          # (B, n_new) | (B, K, n_new)
-    prefill_s: float
+    prefill_s: float            # from the call's spans (``repro_torch.obs``)
     decode_s: float
     tokens_per_s: float
 
@@ -78,33 +83,40 @@ class ServeEngine:
             raise ValueError(f"prefix {n_prefix} + prompt {S} + n_new {n_new} "
                              f"exceeds max_seq {self.max_seq}; increase "
                              f"max_seq")
-        cache = self.model.init_cache(B, self.max_seq, device=self.device)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-
-        self._sync()
-        t0 = time.perf_counter()
-        batch: Dict[str, Any] = {"tokens": toks}
-        if cfg.family == "vlm":
-            batch["patch_embeds"] = torch.zeros(
-                (B, cfg.n_patches, cfg.d_model), device=self.device)
-        logits, cache = self.model.prefill(self.params, batch, cache)
-        self._sync()
-        t_prefill = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        outs = []
-        last = logits[:, -1:]
-        for i in range(n_new):
-            nxt = self._sample(last, generator, temperature)  # (B,1)|(B,1,K)
-            if audio:
-                nxt = nxt.movedim(-1, 1)                        # (B,K,1)
-            outs.append(nxt)
-            last, cache = self.model.decode_step(
-                self.params, cache,
-                {"tokens": nxt, "cache_index": n_prefix + S + i})
-        new = torch.cat(outs, dim=-1).to(torch.int32).cpu().numpy()
-        self._sync()
-        t_decode = time.perf_counter() - t0
+        rec = obs.RECORDER
+        with rec.call(B, S, n_new):
+            with rec.span("init_cache"):
+                cache = self.model.init_cache(B, self.max_seq,
+                                              device=self.device)
+                generator = torch.Generator(
+                    device=self.device).manual_seed(seed)
+                self._sync()
+            with rec.span("prefill") as prefill:
+                batch: Dict[str, Any] = {"tokens": toks}
+                if cfg.family == "vlm":
+                    batch["patch_embeds"] = torch.zeros(
+                        (B, cfg.n_patches, cfg.d_model), device=self.device)
+                logits, cache = self.model.prefill(self.params, batch, cache)
+                self._sync()
+            outs, first = [], None
+            last = logits[:, -1:]
+            for i in range(n_new):
+                # the host's enqueue of one step: nothing in it waits
+                with rec.span("decode_step") as step:
+                    nxt = self._sample(last, generator, temperature)
+                    if audio:
+                        nxt = nxt.movedim(-1, 1)                # (B,K,1)
+                    outs.append(nxt)
+                    last, cache = self.model.decode_step(
+                        self.params, cache,
+                        {"tokens": nxt, "cache_index": n_prefix + S + i})
+                first = first or step
+            with rec.span("to_host") as to_host:
+                new = torch.cat(outs, dim=-1).to(torch.int32).cpu().numpy()
+                self._sync()
+        t_prefill = prefill.duration_s
+        # the decode steps and the wait for their tokens
+        t_decode = (to_host.end_ns - (first or to_host).start_ns) / 1e9
         # tokens/s counts generated timesteps per sequence: an audio
         # model's K codebook tokens of one step are one timestep
         n_tok = new.shape[0] * new.shape[-1]
