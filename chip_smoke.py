@@ -21,7 +21,12 @@ Run from the repository root, with nothing else on the command line:
    with x scaled by 8, every prefill case also held to the product in
    float64, and each case's variant (K1: flash_wgmma in fp32 or bf16;
    K2: gmm_small, gmm_wgmma, gmm_wgmma_bf16, gmm_decode_bf16 or
-   gmm_large) checked. The build fails the run if ``ptxas`` spills in
+   gmm_large) checked. (K3, the q/k/v epilogue, is held to its plain
+   chain by the card tests in ``tests/test_torch_gpu.py``; here every
+   engine counts its launches, one an attention layer a forward, and
+   the timing phase holds it to the chain at the benchmark cells'
+   shapes, at the card tests' tolerance: ``k3_held``.)
+   The build fails the run if ``ptxas`` spills in
    flash_wgmma, gmm_wgmma, gmm_wgmma_bf16 or gmm_decode_bf16, or
    serializes gmm_decode_bf16's wgmma (C7514), and prints any line of
    ptxas's about serialized wgmma.
@@ -129,7 +134,11 @@ Run from the repository root, with nothing else on the command line:
     rows need. K1 and SDPA are
     timed by their device time in a torch.profiler trace (K2 too, beside
     its CUDA-event time), since back-to-back calls of a kernel shorter
-    than its wrapper read the host.
+    than its wrapper read the host. K3 at the benchmark cells' shapes
+    (``K3_CELL_SHAPES``: dense and moe 8 x 4096 prefill, the chat
+    cell's 16-row decode step), held to the plain chain first
+    (``k3_held``), beside its byte bound, the plain chain's device time
+    and kernels, and the launches a forward of the engine run.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}``
 line before the last line, which is ``{"ok": true, "device": {...}}``.
@@ -474,6 +483,16 @@ def engine_bounds(cfg, B, S, max_seq, dtype=torch.float32):
     out["decode_step_bound_ms"] = ((elt * weights + 4 * cache)
                                    / H100_BYTES_PER_S * 1e3)
     return out
+
+
+def check_k3_launches(cfg, launches: dict, n_new: int) -> float:
+    """K3 runs once an attention layer a forward: the prefill and each of
+    the ``n_new`` decode steps. Returns the launches a forward."""
+    want = attention_layers(cfg) * (1 + n_new)
+    check(launches["qkv_rope"] == want,
+          f"{cfg.name} generate made {launches['qkv_rope']} qkv_rope "
+          f"launches, want {attention_layers(cfg)} * (1 + {n_new}) = {want}")
+    return launches["qkv_rope"] / (1 + n_new)
 
 
 def kernel_phase(fa, gm, ref, cfgs) -> None:
@@ -1056,11 +1075,14 @@ def moe_engine_phase(fa, gm, cfg, dtype=torch.float32):
     from a trace of its repeat (``traced_repeat``)."""
     from repro_torch import ServeEngine
 
+    from repro_torch.kernels import qkv_rope as k3
+
     eng = ServeEngine(cfg, params=draw_on_card(cfg, dtype), max_seq=1024,
                       device="cuda")
     tally: dict = {}
-    prompts, launches, engine = serve(eng, cfg, (fa, gm),
+    prompts, launches, engine = serve(eng, cfg, (fa, gm, k3),
                                       in_path(fa, gm, eng.model, tally))
+    engine["k3_launches_per_forward"] = check_k3_launches(cfg, launches, 64)
     L, want = cfg.n_layers, 3 * cfg.n_layers * (1 + 64)
     check(launches["flash_attention"] == L,
           f"moe prefill made {launches['flash_attention']} flash_attention "
@@ -1127,13 +1149,16 @@ def family_engine_phase(fa, gm, cfg, n_new: int, dtype=torch.float32):
     numbers, all from the main path's run, and each launch's device time
     from a trace of its repeat (``traced_repeat``)."""
     from repro_torch import ServeEngine
+    from repro_torch.kernels import qkv_rope as k3
 
     eng = ServeEngine(cfg, params=draw_on_card(cfg, dtype), max_seq=1024,
                       device="cuda")
     tally: dict = {}
-    prompts, launches, engine = serve(eng, cfg, (fa, gm),
+    prompts, launches, engine = serve(eng, cfg, (fa, gm, k3),
                                       in_path(fa, gm, eng.model, tally),
                                       n_new)
+    engine["k3_launches_per_forward"] = check_k3_launches(cfg, launches,
+                                                          n_new)
     n = attention_layers(cfg)
     check(launches["flash_attention"] == n,
           f"{cfg.name} prefill made {launches['flash_attention']} "
@@ -1604,7 +1629,232 @@ def k2_rows(gm, ref, cfg, tally: dict, dtype) -> list:
     return rows_out
 
 
-def timing_phase(fa, gm, ref, tallies, cfgs):
+# K3 at the benchmark cells' shapes: (model, B, S, cache rows, the decode
+# step's cache index or None for a prefill): the prompt cells' 8 x 4096
+# prefill, dense and moe, and the chat cell's 16-row decode step.
+K3_CELL_SHAPES = (("qwen3-14b", 8, 4096, 4097, None),
+                  ("qwen2-moe-a2.7b", 8, 4096, 4097, None),
+                  ("qwen3-14b", 16, 1, 3104, 2048))
+# every cache row K3 does not write keeps this value
+K3_SENTINEL = -7.25
+
+
+def k3_heads(cfg) -> tuple:
+    """(H, Hkv, hd, bias, qk-norm) of a model's attention."""
+    return (cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.qkv_bias,
+            cfg.qk_norm)
+
+
+def k3_inputs(heads, B, S, index, dtype, theta=1e6, eps=1e-6, seed=0):
+    """K3's arguments at ``heads`` (``k3_heads``): random projections,
+    biases and qk-norm scales where the heads have them, positions
+    0 .. S - 1, or ``index`` for a decode step."""
+    H, Hkv, hd, bias, norm = heads
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(dtype)
+
+    q, k, v = r(B, S, H * hd, scale=3.0), r(B, S, Hkv * hd), r(B, S, Hkv * hd)
+    b = (r(H * hd), r(Hkv * hd), r(Hkv * hd)) if bias else (None,) * 3
+    n = (1 + r(hd, scale=0.2), 1 + r(hd, scale=0.2)) if norm else (None,) * 2
+    if index is None:
+        pos = torch.arange(S, dtype=torch.int32, device="cuda")[None]
+        pos = pos.expand(B, S)
+    else:
+        pos = torch.full((B, 1), index, dtype=torch.int32, device="cuda")
+    return (q, k, v, pos, hd, theta, *b, *n, eps)
+
+
+def k3_caches(B, T, Hkv, hd, dtype=torch.float32) -> tuple:
+    """A (k, v) cache pair (B, T, Hkv, hd) filled with ``K3_SENTINEL``."""
+    return tuple(torch.full((B, T, Hkv, hd), K3_SENTINEL, dtype=dtype,
+                            device="cuda") for _ in "kv")
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (x held in fp32)."""
+    e = torch.frexp(x.abs().clamp_min(2.0 ** -126))[1]
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def k3_chain_with_factor(args, fq, fk):
+    """``ref.qkv_rope_ref``'s q and k with qk-norm's rounded rsqrt
+    factors given, (B, S, heads, 1) in the input's dtype."""
+    from repro_torch.kernels.ref import apply_rope
+
+    q, k, v, pos, hd, theta, bq, bk, bv, sq, sk, _ = args
+    B, S = q.shape[:2]
+    if bq is not None:
+        q, k = q + bq, k + bk
+    q, k = (t.reshape(B, S, -1, hd) for t in (q, k))
+    q, k = q * fq * sq, k * fk * sk
+    return apply_rope(q, pos, theta), apply_rope(k, pos, theta)
+
+
+def factor_ties(x, hd, eps):
+    """For x (B, S, heads*hd) after its bias: the chain's rounded rsqrt
+    factor by head, the bf16 factor on the other side of its fp32 value,
+    and the heads whose fp32 factor lies within 2^-18 of the midpoint
+    between the two: there the fp32 sum's order decides the rounding."""
+    B, S = x.shape[:2]
+    x = x.reshape(B, S, -1, hd)
+    rf = torch.rsqrt(x.float().square().mean(-1, keepdim=True) + eps)
+    near = rf.to(torch.bfloat16)
+    step = torch.where(rf > near.float(), 1, -1).to(torch.int16)
+    other = (near.view(torch.int16) + step).view(torch.bfloat16)
+    mid = (near.float() + other.float()) / 2
+    return near, other, (rf - mid).abs() <= rf * 2.0 ** -18
+
+
+def k3_heads_off(got, want, dtype, alt=None, ties=None) -> int:
+    """The heads of ``got`` (B, S, heads, hd) not close to the plain
+    chain's ``want``. fp32: within 2e-6 of each head's largest value.
+    bf16: within one bf16 ulp of the plain chain, or, in a head where
+    the rsqrt factor is a near-tie (``ties``), of the chain with the
+    other rounding (``alt``)."""
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        peak = want.abs().amax(dim=-1, keepdim=True)
+        ok = ((got - want).abs() <= 2e-6 * peak).all(dim=-1)
+        return int((~ok).sum())
+    ulp = bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    ok = ((got - want).abs() <= ulp).all(dim=-1, keepdim=True)
+    if alt is not None:
+        alt = alt.float()
+        ulp_alt = bf16_ulp(torch.maximum(got.abs(), alt.abs()))
+        ok |= ties & ((got - alt).abs() <= ulp_alt).all(dim=-1, keepdim=True)
+    return int((~ok).sum())
+
+
+def k3_held(got, want, args, dtype, cache=None, index=None) -> dict:
+    """K3's outputs ``got`` against the plain chain's ``want`` on the same
+    ``args``: the heads of q and of k off by more than the card tests
+    allow (``k3_heads_off``; in bf16 with qk-norm, the rsqrt near-ties
+    are counted and the chain is rebuilt from its rounded factors to
+    show the tie model reproduces it), v equal bit for bit, and, with
+    the kernel's ``cache``, whether the written rows hold its own k and v
+    in the cache's dtype bit for bit and every other row its
+    ``K3_SENTINEL``."""
+    out = {"heads_off": [0, 0], "v_equal": torch.equal(got[2], want[2])}
+    alt = ties = (None, None)
+    if dtype == torch.bfloat16 and args[9] is not None:
+        (q_in, k_in), (bq, bk), hd, eps = args[:2], args[6:8], args[4], \
+            args[11]
+        fq, oq, tq = factor_ties(q_in if bq is None else q_in + bq, hd, eps)
+        fk, ok_, tk = factor_ties(k_in if bk is None else k_in + bk, hd, eps)
+        same = k3_chain_with_factor(args, fq, fk)
+        out["chain_rebuilt"] = bool(torch.equal(same[0], want[0])
+                                    and torch.equal(same[1], want[1]))
+        alt, ties = k3_chain_with_factor(args, oq, ok_), (tq, tk)
+        out["near_ties"] = [int(tq.sum()), int(tk.sum())]
+    for i in (0, 1):
+        out["heads_off"][i] = k3_heads_off(got[i], want[i], dtype, alt[i],
+                                           ties[i])
+    if cache is not None:
+        S = got[1].shape[1]
+        rows = slice(index, index + 1) if index is not None and S == 1 \
+            else slice(0, S)
+        own, rest = True, True
+        for c, t in zip(cache, got[1:]):
+            own &= torch.equal(c[:, rows], t.to(c.dtype))
+            kept = c.clone()
+            kept[:, rows] = K3_SENTINEL
+            rest &= bool((kept == K3_SENTINEL).all())
+        out["cache_rows_own"], out["cache_rest_kept"] = own, rest
+    return out
+
+
+def k3_ok(held: dict) -> bool:
+    return (held["heads_off"] == [0, 0] and held["v_equal"]
+            and held.get("chain_rebuilt", True)
+            and held.get("cache_rows_own", True)
+            and held.get("cache_rest_kept", True))
+
+
+def k3_bound(cfg, B, S, dtype) -> dict:
+    """K3's least time: q, k and v read once, q and k written (v too where
+    the bias changes it), k and v written to the fp32 cache, at 3.35 TB/s
+    (biases, scales, positions and the frequency table are left out: under
+    0.01%)."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    eb = torch.finfo(dtype).bits // 8
+    vals = B * S * hd
+    nbytes = vals * ((H + 2 * Hkv) * eb + (H + Hkv + Hkv * cfg.qkv_bias) * eb
+                     + 2 * Hkv * 4)
+    return {"bytes": nbytes, "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def k3_row(k3, ref, cfg, B, S, T, index, dtype, per_forward) -> dict:
+    """K3 at one cell shape, held to the plain chain
+    (``ref.qkv_rope_ref``) on the same inputs by ``k3_held`` (the run
+    fails otherwise), beside its byte bound and the plain chain: device
+    times from a torch.profiler trace (all of the plain chain's kernels,
+    and how many), CUDA events beside; the largest difference, the share
+    of q and k values equal bit for bit, and whether the two caches came
+    out the same; ``per_forward``, the launches a forward counted in the
+    model's engine run."""
+    args = k3_inputs(k3_heads(cfg), B, S, index, dtype, cfg.rope_theta,
+                     cfg.norm_eps, seed=97)
+    Hkv, hd = cfg.n_kv_heads, cfg.d_head
+    cache, plain_cache = k3_caches(B, T, Hkv, hd), k3_caches(B, T, Hkv, hd)
+    got = k3.qkv_rope(*args, cache=cache, cache_index=index)
+    want = ref.qkv_rope_ref(*args, cache=plain_cache, cache_index=index)
+    held = k3_held(got, want, args, dtype, cache, index)
+    shape = [B, S, cfg.n_heads, Hkv, hd]
+    check(k3_ok(held), f"qkv_rope {cfg.name} {shape} against the plain "
+          f"chain: {held}")
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    equal = sum(int((a == b).sum()) for a, b in zip(got[:2], want[:2])) / \
+        sum(a.numel() for a in got[:2])
+    cache_equal = all(torch.equal(a, b) for a, b in zip(cache, plain_cache))
+    del got, want
+
+    def kernel():
+        return k3.qkv_rope(*args, cache=cache, cache_index=index)
+
+    def plain():
+        return ref.qkv_rope_ref(*args, cache=plain_cache, cache_index=index)
+
+    row = {
+        "name": "qkv_rope",
+        "model": cfg.name,
+        "phase": "prefill" if index is None else "decode",
+        "shape": shape,
+        "bias": cfg.qkv_bias, "qk_norm": cfg.qk_norm,
+        "dtype": str(dtype).replace("torch.", ""),
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/qkv_rope.cu",
+        "replaces": "port only: no TPU kernel",
+        "launches_per_forward": per_forward,
+        "max_abs_err": err,
+        "equal_share": equal,
+        "cache_equal": cache_equal,
+        **held,
+        "ms": device_ms(kernel, "qkv_rope"),
+        "event_ms": cuda_ms(kernel),
+        "plain_ms": device_ms(plain),
+        "plain_event_ms": cuda_ms(plain),
+        "plain_kernels": device_kernels(plain)["count"],
+        **k3_bound(cfg, B, S, dtype),
+    }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def k3_rows(k3, ref, cfgs, engines) -> list:
+    """``k3_row`` at each of ``K3_CELL_SHAPES`` in bf16, the cells' dtype,
+    with the launches a forward of that model's bf16 engine run."""
+    bf16 = torch.bfloat16
+    return [k3_row(k3, ref, cfgs[name], B, S, T, index, bf16,
+                   engines[(name, bf16)]["k3_launches_per_forward"])
+            for name, B, S, T, index in K3_CELL_SHAPES]
+
+
+def timing_phase(fa, gm, ref, tallies, engines, cfgs):
     """The ``kernels`` line: K1 at the prefill shape of every served model
     that has attention (all in ``tallies`` but xlstm-350m) in each dtype
     it was served in (fp32 rows first), and K2 at each of the moe path's
@@ -1627,7 +1877,9 @@ def timing_phase(fa, gm, ref, tallies, cfgs):
     for dtype in (f32, bf16):
         kernels += k2_rows(gm, ref, moe_cfg, tallies[(moe_cfg.name, dtype)],
                            dtype)
-    return kernels
+    from repro_torch.kernels import qkv_rope as k3
+
+    return kernels + k3_rows(k3, ref, cfgs, engines)
 
 
 # The fluid simulator on the card against the same call on the CPU: the
@@ -2231,7 +2483,7 @@ def main() -> int:
     phase_done("control plane")
     fleet_phase()
     phase_done("fleet sweep")
-    kernels = timing_phase(fa, gm, ref, tallies, cfgs)
+    kernels = timing_phase(fa, gm, ref, tallies, engines, cfgs)
     phase_done("timing")
     dtypes = {"float32": f32, "bfloat16": bf16}
     for row in kernels:
@@ -2247,13 +2499,22 @@ def main() -> int:
               f"({100 * ms / engine['prefill_ms']:.1f}%); by CUDA events in "
               f"the run {row['in_path_event_ms']:.4f} ms a launch; time alone "
               f"{row['ms']:.4f} ms")
+    for row in kernels:
+        if row["name"] == "qkv_rope":
+            print(f"qkv_rope {row['model']} {row['phase']} {row['shape']}: "
+                  f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({100 * row['bound_share']:.1f}%), plain chain "
+                  f"{row['plain_ms']:.4f} ms in {row['plain_kernels']} "
+                  f"kernels, {row['launches_per_forward']:g} a forward in "
+                  f"the engine run; heads off {row['heads_off']}")
     for dname, dtype in dtypes.items():
         moe_engine = engines[(moe_cfg.name, dtype)]
         for phase, total in (("prefill", moe_engine["prefill_ms"]),
                              ("decode", moe_engine["decode_step_ms"] * 64)):
             ms = moe_engine["k2_in_path_traced_ms"][phase]
             alone = sum(r["in_path_alone_ms"] * r["launches"] for r in kernels
-                        if r.get("phase") == phase and r["dtype"] == dname)
+                        if r["name"] == "grouped_matmul"
+                        and r["phase"] == phase and r["dtype"] == dname)
             print(f"moe {dname} {phase} time in grouped_matmul, traced in a "
                   f"repeat of the main run: {ms:.3f} ms of {total:.2f} ms "
                   f"({100 * ms / total:.1f}%); by CUDA events in the run "

@@ -23,7 +23,7 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> {C function: (restype, argtypes)}; pointers and the stream are
 # c_void_p so that ctypes passes them as 64-bit values.
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
@@ -35,6 +35,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "grouped_matmul": {
         "repro_grouped_matmul": (_I, [_P, _P, _P, _P] + [_I] * 5 + [_P]),
         "repro_grouped_matmul_route": (_I, [_P, _P, _P] + [_I] * 4),
+        "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "qkv_rope": {
+        "repro_qkv_rope": (_I, [_P] * 15 + [_I] * 11 + [_F, _F, _P]),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -107,10 +111,13 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    """The loaded library for ``csrc/<name>.cu``. The first load builds
+    every library not built yet, their ``nvcc`` runs side by side: a
+    served forward loads K3's and K1's in turn, and built one at a time
+    its first call would wait for both builds in a row."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        lib = ctypes.CDLL(str(build()[name]))
         for fn, (restype, argtypes) in SIGNATURES[name].items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes

@@ -26,11 +26,11 @@ from torch import nn
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (cp_on_shards, gqa_on_shards,
-                                              kv_heads, kv_whole, pin_batch,
-                                              project, reduced_like, reshape,
-                                              seq_on_shards, seq_sharded,
-                                              write_at)
+                                              kv_heads, pin_batch, project,
+                                              reshape, seq_on_shards,
+                                              seq_sharded)
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -60,31 +60,7 @@ class RMSNorm(nn.Module):
 
 
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    var = reduced_like(x.float().square().mean(dim=-1, keepdim=True), x)
-    y = x * torch.rsqrt(var + eps).to(x.dtype)
-    return y * p.scale.to(x.dtype)
-
-
-# ----------------------------------------------------------------------
-def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
-    return 1.0 / (theta ** exps)
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S) or (S,). Split-half (not
-    interleaved) rotation with fp32 angles."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)              # (hd/2,)
-    if positions.dim() == 1:
-        positions = positions[None, :]
-    ang = positions[..., None].float() * freqs            # (B,S,hd/2)
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return kref.rms_norm(x, p.scale, eps)
 
 
 # ----------------------------------------------------------------------
@@ -111,32 +87,23 @@ class Attention(nn.Module):
 
 
 def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor
+                 positions: torch.Tensor, kernel: bool,
+                 cache: Optional[Cache] = None,
+                 cache_index: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q, k, v (B, S, heads, hd). Where the rules shard q's heads and not
-    the kv heads, k and v come back with one kv head per device
-    (``sharding.kv_heads``; ``sharding.kv_whole`` gives the cache its
-    heads back)."""
-    B, S, _ = x.shape
-    bk, bv = (p.bk, p.bv) if cfg.qkv_bias else (None, None)
-    n_kv, wk, wv, bk, bv = kv_heads(cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
-                                    p.wk, p.wv, bk, bv)
-    q = project(x, p.wq)
-    k = project(x, wk)
-    v = project(x, wv)
-    if cfg.qkv_bias:
-        q = q + p.bq.to(x.dtype)
-        k = k + bk.to(x.dtype)
-        v = v + bv.to(x.dtype)
-    q = reshape(q, B, S, cfg.n_heads, cfg.d_head)
-    k = reshape(k, B, S, n_kv, cfg.d_head)
-    v = reshape(v, B, S, n_kv, cfg.d_head)
-    if cfg.qk_norm:
-        q = rmsnorm(p.q_norm, q, cfg.norm_eps)
-        k = rmsnorm(p.k_norm, k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    """q, k, v (B, S, heads, hd): the projections, then their epilogue
+    (bias, qk-norm, RoPE) and the write of k and v into ``cache``, in K3
+    or its plain chain as ``kops.qkv_rope`` routes them (K3 only with
+    ``kernel``). Where the rules shard q's heads and not the kv heads, k
+    and v come back with one kv head per device (``sharding.kv_heads``;
+    ``sharding.kv_whole`` gives the cache its heads back)."""
+    bq, bk, bv = (p.bq, p.bk, p.bv) if cfg.qkv_bias else (None, None, None)
+    _, wk, wv, bk, bv = kv_heads(cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                                 p.wk, p.wv, bk, bv)
+    norms = (p.q_norm.scale, p.k_norm.scale) if cfg.qk_norm else (None, None)
+    return kops.qkv_rope(project(x, p.wq), project(x, wk), project(x, wv),
+                         positions, cfg.d_head, cfg.rope_theta, bq, bk, bv,
+                         *norms, cfg.norm_eps, cache, cache_index, kernel)
 
 
 def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -242,23 +209,21 @@ def attention_apply(
     (serving) runs the flash-attention kernel on CUDA tensors (its plain
     version on CPU tensors) at every S; False and True are the
     reference's training routes, the masked ``_sdpa``, or with True
-    ``_sdpa_chunked`` at S >= 256 ("cp": context parallel). The kernel
-    has no backward, so training never takes it. While a profiler is
-    active it records the detail spans ``attn.qkv``, ``attn.cache_write``
-    and ``attn.core`` (``repro_torch.obs``).
+    ``_sdpa_chunked`` at S >= 256 ("cp": context parallel). With None,
+    K3 also takes the q/k/v epilogue and the cache write where
+    ``kops.qkv_rope`` routes them to it. The kernels have no backward, so
+    training never takes them. While a profiler is active it records the
+    detail spans ``attn.qkv`` (the cache write included) and
+    ``attn.core`` (``repro_torch.obs``).
     """
     B, S, _ = x.shape
+    decode = cache is not None and cache_index is not None and S == 1
     with obs.detail("attn.qkv"):
-        q, k, v = _project_qkv(p, cfg, x, positions)
-    new_cache = None
-    if cache is not None and cache_index is not None and S == 1:
+        q, k, v = _project_qkv(p, cfg, x, positions, use_flash is None,
+                               cache, cache_index if decode else None)
+    new_cache = None if cache is None else tuple(cache)
+    if decode:
         k_cache, v_cache = cache
-        with obs.detail("attn.cache_write"):
-            write_at(k_cache, cache_index,
-                     kv_whole(k, cfg.n_kv_heads).to(k_cache.dtype))
-            write_at(v_cache, cache_index,
-                     kv_whole(v, cfg.n_kv_heads).to(v_cache.dtype))
-        new_cache = (k_cache, v_cache)
         T = k_cache.shape[1]
         with obs.detail("attn.core"):
             # low-precision KV caches are upcast at read; scores/softmax
@@ -283,12 +248,6 @@ def attention_apply(
                 out = gqa_on_shards(_sdpa, q, k, v, mask)
             else:
                 out = gqa_on_shards(_sdpa, q, k, v, None)
-        if cache is not None:
-            k_cache, v_cache = cache
-            with obs.detail("attn.cache_write"):
-                k_cache[:, :S] = kv_whole(k, cfg.n_kv_heads).to(k_cache.dtype)
-                v_cache[:, :S] = kv_whole(v, cfg.n_kv_heads).to(v_cache.dtype)
-            new_cache = (k_cache, v_cache)
     out = project(reshape(out, B, S, cfg.d_q), p.wo, out_like=x)
     return out, new_cache
 

@@ -767,3 +767,154 @@ def test_sharded_train_step_on_a_one_rank_nccl_mesh(hopper, route):
     assert loss == pytest.approx(float(m["loss"]), rel=1e-6)
     for k, v in plain["params"].named_parameters():
         torch.testing.assert_close(got[k], v.detach(), rtol=0, atol=1e-6)
+
+
+# ----------------------------------------------------------------------
+# K3, attention's q/k/v epilogue (bias, qk-norm, RoPE, the cache write)
+# (H, Hkv, hd, bias, qk-norm) of every served model's attention, then
+# shapes that take the kernel's other paths: qk-norm with bias at hd 112;
+# hd 80 (5 bf16 vectors a half: idle lanes); hd 72 (36 values a half: one
+# value at a time in bf16)
+K3_HEADS = {
+    "qwen2-0.5b": (14, 2, 64, True, False),      # and internvl2-1b
+    "qwen2-moe-a2.7b": (16, 16, 128, True, False),
+    "qwen3-14b": (40, 8, 128, False, True),
+    "zamba2-7b": (32, 32, 112, False, False),
+    "minicpm-2b": (36, 36, 64, False, False),    # musicgen-large: 32/32
+    "bias+norm hd112": (6, 3, 112, True, True),
+    "hd80": (5, 1, 80, True, True),
+    "hd72": (4, 2, 72, False, True),
+}
+# (B, S, cache index): prefill at S up to 4096, ragged, and decode steps
+K3_MODES = {"prefill 1x4096": (1, 4096, None), "prefill 3x1001": (3, 1001, None),
+            "decode at 4095": (16, 1, 4095), "decode at 17": (16, 1, 17)}
+K3_T = 4097
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", list(K3_MODES))
+@pytest.mark.parametrize("case", list(K3_HEADS))
+def test_qkv_rope_matches_the_plain_chain(hopper, case, mode, dtype):
+    """K3 against ``ref.qkv_rope_ref`` on the card at every served
+    model's heads, prefill and decode, under chip_smoke.py's rule
+    (``k3_held``): q and k within 1 bf16 ulp (2e-6 of a head's largest
+    value in fp32), or the other rounding where qk-norm's rsqrt factor is
+    a near-tie; v equal bit for bit; the cache rows the kernel's own k
+    and v; every other cache row left as it was."""
+    from repro_torch.kernels import qkv_rope as k3
+    from repro_torch.kernels.ref import qkv_rope_ref
+
+    cs = _chip_smoke()
+    heads = K3_HEADS[case]
+    B, S, index = K3_MODES[mode]
+    args = cs.k3_inputs(heads, B, S, index, dtype)
+    caches = [cs.k3_caches(B, K3_T, heads[1], heads[2]) for _ in range(2)]
+    before = k3.launches
+    got = k3.qkv_rope(*args, cache=caches[0], cache_index=index)
+    want = qkv_rope_ref(*args, cache=caches[1], cache_index=index)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    assert [t.shape for t in got] == [t.shape for t in want]
+    assert all(t.dtype == dtype for t in got)
+    held = cs.k3_held(got, want, args, dtype, caches[0], index)
+    print(held)
+    assert cs.k3_ok(held), held
+    assert set(held) >= {"cache_rows_own", "cache_rest_kept"}
+    assert ("near_ties" in held) == (dtype == torch.bfloat16 and heads[4])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qkv_rope_without_cache_or_bias_writes_q_and_k(hopper, dtype):
+    """No cache: q and k come back, v is the projection itself; a bf16
+    cache under fp32 inputs takes the rounded k and v."""
+    from repro_torch.kernels import qkv_rope as k3
+    from repro_torch.kernels.ref import qkv_rope_ref
+
+    cs = _chip_smoke()
+    args = cs.k3_inputs((8, 2, 128, False, False), 2, 300, None, dtype)
+    q, k, v = k3.qkv_rope(*args)
+    wq, wk, wv = qkv_rope_ref(*args)
+    assert v.data_ptr() == args[2].data_ptr()
+    assert cs.k3_held((q, k, v), (wq, wk, wv), args, dtype)["heads_off"] \
+        == [0, 0]
+    cache = tuple(torch.zeros(2, 300, 2, 128, dtype=torch.bfloat16,
+                              device="cuda") for _ in "kv")
+    k3.qkv_rope(*args, cache=cache)
+    assert torch.equal(cache[0], k.to(torch.bfloat16))
+    assert torch.equal(cache[1], wv.to(torch.bfloat16))
+
+
+def test_qkv_rope_rejects_what_it_cannot_run(hopper):
+    """What the kernel cannot take raises before a launch (a dtype,
+    strides, arguments its C entry refuses); inputs that need a gradient
+    and tensors off the card take the plain chain instead."""
+    from repro_torch.kernels import qkv_rope as k3
+
+    cs = _chip_smoke()
+    args = cs.k3_inputs((4, 2, 64, True, False), 2, 8, None, torch.float32)
+    before = k3.launches
+    with pytest.raises(TypeError):
+        k3.qkv_rope(*(a.half() if isinstance(a, torch.Tensor)
+                      and a.is_floating_point() else a for a in args))
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.qkv_rope(args[0].transpose(0, 1).contiguous().transpose(0, 1),
+                    *args[1:])
+    with pytest.raises(RuntimeError, match="biases or none"):
+        k3.qkv_rope(*args[:6], args[6], None, args[8], *args[9:])
+    big = cs.k3_inputs((2, 1, 258, False, False), 1, 4, None, torch.float32)
+    with pytest.raises(RuntimeError, match="head dim up to 256"):
+        k3.qkv_rope(*big)
+    cache = cs.k3_caches(2, 8, 2, 64)
+    with pytest.raises(RuntimeError, match="inside the cache"):
+        k3.qkv_rope(*(a[:, :1].contiguous() if i < 4 else a
+                      for i, a in enumerate(args)), cache=cache, cache_index=8)
+    with pytest.raises(RuntimeError):     # the plain chain's device check
+        k3.qkv_rope(args[0], args[1].cpu(), *args[2:])
+    with torch.enable_grad():
+        q, _, _ = k3.qkv_rope(args[0].requires_grad_(True), *args[1:])
+    assert q.grad_fn is not None
+    assert k3.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "qwen2-moe-a2.7b"])
+def test_engine_runs_k3_once_a_layer_and_matches_the_plain_chain(
+        hopper, arch, dtype):
+    """A 2-layer full-width model served on the card: every attention
+    layer of every forward runs K3 once and the plain chain never runs on
+    CUDA tensors; with K3 turned off the same engine serves the same
+    greedy tokens (bf16: up to each row's first step with a top-2 margin
+    below chip_smoke.py's near-tie)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import qkv_rope as k3
+
+    cs = _chip_smoke()
+    cfg = ARCHS[arch].replace(n_layers=2)
+    eng = ServeEngine(cfg, params=cs.draw_on_card(cfg, dtype), max_seq=300,
+                      device="cuda")
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (cs.CARD_CPU_ROWS[dtype], 256))
+    plain_cuda = []
+    real = k3.qkv_rope_ref
+
+    def spy(q, *a, **kw):
+        if q.is_cuda:
+            plain_cuda.append(q.shape)
+        return real(q, *a, **kw)
+
+    n_new, real_reason = 8, k3.plain_reason
+    forwards = cfg.n_layers * (1 + n_new)
+    try:
+        k3.qkv_rope_ref = spy
+        before = k3.launches
+        fused = cs.greedy_trace(eng.model, eng.params, prompt, n_new, "cuda")
+        assert k3.launches - before == forwards and plain_cuda == []
+        k3.plain_reason = lambda *a: "off"
+        plain = cs.greedy_trace(eng.model, eng.params, prompt, n_new, "cuda")
+        assert k3.launches - before == forwards
+        assert len(plain_cuda) == forwards
+    finally:
+        k3.qkv_rope_ref = real
+        k3.plain_reason = real_reason
+    out = cs.compare_card_cpu(fused, plain, dtype)
+    assert sum(out["compared"]) > 0

@@ -8,12 +8,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro.configs import ARCHS as J_ARCHS
 from repro.configs import SMOKES as J_SMOKES
 from repro.models import layers as JL
 from repro_torch.configs import ARCHS, SMOKES, get_arch
 from repro_torch.convert import load_
+from repro_torch.kernels import ref as TR
 from repro_torch.models import layers as TL
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -93,9 +95,9 @@ def test_apply_rope(hd, theta, pos_rank):
     if pos_rank == 2:
         pos = np.stack([pos, pos + 40])
     want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
-    got = TL.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+    got = TR.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
-    np.testing.assert_allclose(_np(TL.rope_freqs(hd, theta)),
+    np.testing.assert_allclose(_np(TR.rope_freqs(hd, theta)),
                                _np(JL.rope_freqs(hd, theta)), rtol=1e-6)
 
 
@@ -216,3 +218,184 @@ def test_load_rejects_mismatched_tree():
     with pytest.raises(ValueError, match="shape"):
         load_(TL.Attention(cfg, device="cpu"),
               dict(jp, wq=np.zeros((3, 3), np.float32)))
+
+
+# ---------------------------------------------------------------- K3's chain
+def _chain_of_layers(q, k, v, pos, hd, theta, bias, norms, eps, cache,
+                     index):
+    """The q/k/v epilogue composed as ``_project_qkv`` and
+    ``attention_apply`` composed it before K3: bias, reshape, ``rmsnorm``
+    per head, ``apply_rope``, then the cache write."""
+    B, S = q.shape[:2]
+    if bias is not None:
+        q, k, v = (t + b.to(q.dtype) for t, b in zip((q, k, v), bias))
+    q, k, v = (t.reshape(B, S, t.shape[-1] // hd, hd) for t in (q, k, v))
+    if norms is not None:
+        mods = [TL.RMSNorm(hd, device="cpu") for _ in norms]
+        with torch.no_grad():
+            for m, s in zip(mods, norms):
+                m.scale.copy_(s)
+        q, k = TL.rmsnorm(mods[0], q, eps), TL.rmsnorm(mods[1], k, eps)
+    q, k = TR.apply_rope(q, pos, theta), TR.apply_rope(k, pos, theta)
+    if cache is not None:
+        for c, t in zip(cache, (k, v)):
+            if index is not None and S == 1:
+                c[:, index:index + 1] = t.to(c.dtype)
+            else:
+                c[:, :S] = t.to(c.dtype)
+    return q, k, v
+
+
+def _qkv_case(hd, H, Hkv, B, S, dtype, bias, qk_norm, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dtype)
+
+    q, k, v = r(B, S, H * hd, scale=3.0), r(B, S, Hkv * hd), r(B, S, Hkv * hd)
+    b = (r(H * hd), r(Hkv * hd), r(Hkv * hd)) if bias else None
+    n = (1 + r(hd, scale=0.2), 1 + r(hd, scale=0.2)) if qk_norm else None
+    return q, k, v, b, n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["prefill", "prefill+cache", "decode+cache",
+                                  "positions (S,)"])
+@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("qk_norm", [False, True])
+@pytest.mark.parametrize("bias", [False, True])
+def test_qkv_rope_ref_is_the_chain_of_rmsnorm_and_rope(bias, qk_norm, hd,
+                                                       mode, dtype):
+    """``ref.qkv_rope_ref``, K3's plain version, is bit for bit the chain
+    the model ran before it: with and without bias and qk-norm, at the
+    served head dims, prefill and decode positions, writing the cache."""
+    dt = getattr(torch, dtype)
+    B, H, Hkv, T, theta = 2, 4, 2, 40, 1e6
+    S, index = (1, 33) if mode.startswith("decode") else (9, None)
+    q, k, v, b, n = _qkv_case(hd, H, Hkv, B, S, dt, bias, qk_norm)
+    if mode == "positions (S,)":
+        pos = torch.arange(S, dtype=torch.int32) + 5
+    elif index is None:
+        pos = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+    else:
+        pos = torch.full((B, 1), index, dtype=torch.int32)
+    caches = []
+    if mode.endswith("cache"):
+        caches = [tuple(torch.full((B, T, Hkv, hd), 7.0) for _ in "kv")
+                  for _ in range(2)]
+    got = TR.qkv_rope_ref(q, k, v, pos, hd, theta, *(b or (None,) * 3),
+                            *(n or (None,) * 2), 1e-6,
+                            caches[0] if caches else None, index)
+    want = _chain_of_layers(q, k, v, pos, hd, theta, b, n, 1e-6,
+                            caches[1] if caches else None, index)
+    for x, y in zip(got, want):
+        assert x.dtype == dt and torch.equal(x, y)
+    if caches:
+        for x, y in zip(*caches):
+            assert torch.equal(x, y)
+        rows = torch.zeros(T, dtype=torch.bool)
+        rows[slice(index, index + 1) if index is not None else slice(0, S)] = 1
+        assert (caches[0][0][:, ~rows] == 7.0).all()   # no other row
+
+
+@pytest.mark.parametrize("cache", [False, True])
+def test_qkv_rope_wrapper_runs_the_plain_chain_on_cpu(cache):
+    """``kops.qkv_rope`` on CPU tensors is ``ref.qkv_rope_ref`` and
+    launches nothing."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import qkv_rope as k3
+
+    q, k, v, b, n = _qkv_case(64, 4, 2, 2, 5, torch.bfloat16, True, True)
+    pos = torch.arange(5, dtype=torch.int32)[None].expand(2, 5)
+    cs = [tuple(torch.zeros(2, 8, 2, 64) for _ in "kv") if cache else None
+          for _ in range(2)]
+    before = k3.launches
+    got = kops.qkv_rope(q, k, v, pos, 64, 1e4, *b, *n, 1e-6, cs[0])
+    want = TR.qkv_rope_ref(q, k, v, pos, 64, 1e4, *b, *n, 1e-6, cs[1])
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    if cache:
+        assert all(torch.equal(x, y) for x, y in zip(cs[0], cs[1]))
+    assert k3.launches == before
+
+
+@pytest.mark.parametrize("reason", ["not cuda", "grad", "dtensor"])
+def test_qkv_route_takes_the_plain_chain(reason, monkeypatch):
+    """``kops.qkv_rope`` runs K3 only on plain CUDA tensors that need no
+    gradient (``qkv_rope.plain_reason``): CPU tensors, inputs that need a
+    gradient and DTensors take the plain chain, which writes the cache
+    inside the ``attn.qkv`` span."""
+    from repro_torch import obs
+    from repro_torch.kernels import qkv_rope as k3
+
+    if reason == "dtensor":
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.launch.mesh import process_group
+
+        with process_group("gloo"):
+            mesh = init_device_mesh("cpu", (1,))
+            x = distribute_tensor(torch.zeros(2, 3, 8), mesh)
+            assert k3.plain_reason(x, torch.zeros(3)) == "dtensor"
+        return
+
+    def kernel(*a, **kw):
+        raise AssertionError("the kernel route was taken")
+
+    monkeypatch.setattr(k3, "_launch", kernel)
+    cfg = _cfg(qkv_bias=True, qk_norm=True)
+    _, tp = _attn_pair(cfg, seed=2)
+    B, S, T = 2, 6, 10
+    x = torch.from_numpy(_rand(3, B, S, cfg.d_model))
+    pos = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+    cache = tuple(torch.zeros(B, T, cfg.n_kv_heads, cfg.d_head)
+                  for _ in "kv")
+    if reason == "grad":
+        x.requires_grad_(True)
+    with torch.set_grad_enabled(reason == "grad"):
+        assert k3.plain_reason(x, tp.wq, *cache) == reason
+    rec = obs.Recorder()
+    monkeypatch.setattr(obs, "RECORDER", rec)
+    with torch.set_grad_enabled(reason == "grad"), profile(
+            activities=[ProfilerActivity.CPU]):
+        out, _ = TL.attention_apply(tp, cfg, x, pos, cache=cache)
+    assert (out.grad_fn is not None) == (reason == "grad")
+    assert [s.name for s in rec.spans] == ["attn.qkv", "attn.core"]
+    assert cache[0][:, :S].abs().sum() > 0 and (cache[0][:, S:] == 0).all()
+
+
+@pytest.mark.parametrize("bad", ["rank", "batch", "width", "positions",
+                                 "bias shape", "cache shape"])
+def test_qkv_rope_rejects_what_the_kernel_cannot_take(bad):
+    """The wrapper's checks of the shapes behind the ints the kernel's C
+    entry gets, run before any launch (here on CPU tensors, which never
+    reach the kernel otherwise)."""
+    from repro_torch.kernels import qkv_rope as k3
+
+    B, S, H, Hkv, hd = 2, 3, 4, 2, 64
+    q, k = torch.zeros(B, S, H * hd), torch.zeros(B, S, Hkv * hd)
+    pos = torch.zeros(B, S, dtype=torch.int32)
+    bias, norms, cache = (None,) * 3, (None,) * 2, None
+    if bad == "rank":
+        q = q[None]
+    elif bad == "batch":
+        k = torch.zeros(B + 1, S, Hkv * hd)
+    elif bad == "width":
+        k = torch.zeros(B, S, 100)
+    elif bad == "positions":
+        pos = pos.float()
+    elif bad == "bias shape":
+        bias = (torch.zeros(H * hd), torch.zeros(hd), torch.zeros(Hkv * hd))
+    else:
+        cache = (torch.zeros(B, 8, H, hd), torch.zeros(B, 8, H, hd))
+    with pytest.raises(ValueError):
+        k3._check(q, k, k, pos, hd, bias, norms, cache)
+
+
+def test_qkv_rope_builds_its_frequency_table_once():
+    from repro_torch.kernels import qkv_rope as k3
+
+    dev = torch.device("cpu")
+    t = k3.freq_table(112, 1e6, dev)
+    assert k3.freq_table(112, 1e6, dev) is t
+    assert torch.equal(t, TR.rope_freqs(112, 1e6, dev))

@@ -118,7 +118,8 @@ def test_build_command_covers_grouped_matmul(monkeypatch, tmp_path):
     cmd = _build.nvcc_command("grouped_matmul", tmp_path / "g.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     assert cmd[-1].endswith("csrc/grouped_matmul.cu")
-    assert set(_build.SIGNATURES) == {"flash_attention", "grouped_matmul"}
+    assert set(_build.SIGNATURES) == {"flash_attention", "grouped_matmul",
+                                      "qkv_rope"}
     assert _build.library_path("grouped_matmul").parent == _build.BUILD_DIR
 
 

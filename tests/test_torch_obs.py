@@ -207,8 +207,8 @@ def test_tokens_bit_identical_with_detail_spans(rec, arch):
     names = {s.name for s in rec.spans}
     layer = {"moe", "moe.route", "moe.experts", "moe.combine", "moe.shared"} \
         if arch.startswith("qwen2-moe") else {"mlp"}
-    assert {"embed", "attention", "attn.qkv", "attn.cache_write",
-            "attn.core", "unembed"} | layer <= names
+    assert {"embed", "attention", "attn.qkv", "attn.core",
+            "unembed"} | layer <= names
     # one attention a layer a forward, inside its step
     n_fwd = 1 + 4
     assert sum(s.name == "attention" for s in rec.spans) \
